@@ -3,27 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases (any failure ends the run with a non-zero exit and no result line):
+Two main paths: usearch_global (kernels K1, K2, K3) and greedy
+clustering (K4, K2, K3).  Phases (any failure ends the run with a non-zero
+exit and no result line):
 
 1. build the CUDA kernels of csrc/ with nvcc (one process per source, all
    started together) and print the build seconds and ptxas's register
    counts;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (exact equality: the work is integer
+   shapes its main path gives it (exact equality: the work is integer
    counts and integer DP), and time kernel, plain version, one PyTorch
    library call computing the same function where there is one, and the
-   least time the card could take (bound_ms);
+   least time the card could take (bound_ms): K1, K2 and K3 at the search
+   shapes, K4 at the full clustering width and K2 and K3 at the cluster
+   prefetch's shape;
 3. run usearch_global through the CLI on two small workloads, three
    option sets each: on cuda as routed, on cuda with every walk round
    forced onto the device aligner, and on cpu (the plain versions); uc and
    blast6 must be byte-equal, and the launches of each cuda run are
-   printed, the walk rounds' K2 launches apart from the prefetch's;
-4. the full-width run: the bench dataset (100 000 DB sequences x 600 nt,
-   2000 queries, seed 1234, --id 0.9 --maxaccepts 1 --maxrejects 32,
-   wordlength 8) through the CLI, one warm-up then one timed run, with the
-   launch counts of every kernel read around the timed run, then the same
-   run under torch.profiler for the device's busy time by kernel and its
-   idle share;
+   printed, the walk rounds' K2 launches apart from the prefetch's; then
+   three clustering runs of a small family workload with the device tier
+   from the 16th centroid on, on cuda and on cpu, uc and centroids
+   byte-equal;
+4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
+   sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
+   --maxrejects 32, wordlength 8) through the CLI, one warm-up then one
+   timed run, with the launch counts of every kernel read around the timed
+   run, then the same run under torch.profiler for the device's busy time
+   by kernel and its idle share.  Clustering: tools/bench_scale.py's
+   amp100k cell (25 000 families x 4 members x 400 nt, seed 17) through
+   --cluster_size --id 0.97 --sizein --sizeout, one timed run with the
+   launch counts read around it, then the same run under torch.profiler;
 5. one line listing every kernel with its numbers.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA device;
@@ -57,6 +67,18 @@ SEQ_LEN = 600
 
 FULL_ARGS = ["--id", "0.9", "--maxaccepts", "1", "--maxrejects", "32",
              "--threads", "1", "--quiet"]
+
+# the clustering cell: tools/bench_scale.py's amp100k (gen_amp_families,
+# 25 000 families x 4 members x 400 nt), generated here from its own seed
+AMP_FAMILIES = 25000
+AMP_LEN = 400
+AMP_SEED = 17
+CLUSTER_ARGS = ["--id", "0.97", "--sizein", "--sizeout", "--threads", "1",
+                "--quiet"]
+
+# the kernels each main path must launch
+SEARCH_KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
+CLUSTER_KERNELS = ("score_ranked", "nw_rowscan", "nw_backtrack")
 
 
 def card() -> str:
@@ -146,6 +168,59 @@ def generate(workdir: pathlib.Path, db_size=DB_SIZE, n_queries=N_QUERIES,
     return db_path, q_path
 
 
+def generate_amp(path: pathlib.Path, families=AMP_FAMILIES,
+                 length=AMP_LEN, seed=AMP_SEED):
+    """tools/bench_scale.py gen_amp_families: per family a random ancestor
+    and 4 members, the first a copy of it and the others with up to 9
+    random substitutions, each with a random ;size= abundance 1-49."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "wb") as fh:
+        i = 0
+        for _ in range(families):
+            base = alphabet[rng.integers(0, 4, size=length)]
+            for m in range(4):
+                s = base.copy()
+                pos = rng.integers(0, length,
+                                   size=rng.integers(0, 10 if m else 1))
+                s[pos] = alphabet[rng.integers(0, 4, size=pos.size)]
+                fh.write(b">s%d;size=%d\n%s\n"
+                         % (i, rng.integers(1, 50), s.tobytes()))
+                i += 1
+    return path
+
+
+def write_cluster_workload(workdir: pathlib.Path, families=200, members=4,
+                           seq_len=150, seed=5):
+    """Small clustering workload in the form of tests/test_device_growing.py's
+    families: 200 random 150 nt ancestors x 4 members with up to 7
+    substitutions and random abundances, 800 sequences.  With the device
+    tier from the 16th centroid on, a run has one host round of 256 and
+    two device rounds, the second carrying the first's new centroids."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    path = workdir / "cfam.fasta"
+    with open(path, "w") as fh:
+        i = 0
+        for _ in range(families):
+            base = rng.choice(list("ACGT"), size=seq_len)
+            for m in range(members):
+                s = base.copy()
+                for _ in range(int(rng.integers(0, 8 if m else 1))):
+                    s[rng.integers(0, seq_len)] = rng.choice(list("ACGT"))
+                fh.write(">s%d;size=%d\n%s\n"
+                         % (i, int(rng.integers(1, 50)), "".join(s)))
+                i += 1
+    return path
+
+
+def read_fasta(path: pathlib.Path):
+    """Sequences of a two-line-per-record FASTA file."""
+    with open(path, "rb") as fh:
+        return fh.read().split(b"\n")[1::2]
+
+
 def write_parity_workload(workdir: pathlib.Path, db_n=520, n_queries=64,
                           seq_len=150, seed=77):
     """Small usearch_global workload (520 x 150 nt DB, 64 queries at ~92%
@@ -225,6 +300,33 @@ def phase_build(gpu):
           "card": gpu})
 
 
+def int_mm_yardstick(Kbits, bits, counts, name: str) -> float:
+    """ms of the library yardstick: the same counts as one int8 library
+    product of the one-hot query matrix and the unpacked bit matrix (never
+    used by the port), checked equal to the kernel's counts."""
+    import torch
+    qp = Kbits.shape[0]
+    V, words = bits.shape
+    dev = Kbits.device
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    onehot = ((Kbits[:, :, None] >> shifts) & 1).reshape(qp, -1)[:, :V] \
+        .to(torch.int8).contiguous()
+    # the unpacked bits (V, positions) are stored column-major, the layout
+    # the int8 library product takes for its second operand
+    unpacked_t = torch.empty((words * 32, V), dtype=torch.int8, device=dev)
+    for r0 in range(0, V, 2048):
+        unpacked_t[:, r0:r0 + 2048] = ((bits[r0:r0 + 2048, :, None] >> shifts)
+                                       & 1).reshape(-1, words * 32).t()
+    unpacked = unpacked_t.t()
+    lib = torch._int_mm(onehot, unpacked)
+    torch.cuda.synchronize()
+    require(torch.equal(lib, counts), "library product differs from " + name)
+    library_ms = timed(lambda: torch._int_mm(onehot, unpacked), 5)
+    del unpacked, unpacked_t, lib
+    torch.cuda.empty_cache()
+    return library_ms
+
+
 def phase_kernels(gpu, db_path, q_path):
     """Each kernel against its plain version at the main path's shapes,
     with the main path's own inputs: the first 512-query chunk of the
@@ -235,8 +337,7 @@ def phase_kernels(gpu, db_path, q_path):
     from vsearch_tpu_torch import cli, device
     from vsearch_tpu_torch.core.search import SearchContext, load_db_and_index
     from vsearch_tpu_torch.io import fastx
-    from vsearch_tpu_torch.ops import cuda_lib, kmer, nw_batch, nw_rowscan
-    from vsearch_tpu_torch.ops import score_dense
+    from vsearch_tpu_torch.ops import cuda_lib, kmer, nw_batch, score_dense
 
     dev = device.select("cuda")
     params = cli.parse_args(["--usearch_global", str(q_path), "--db",
@@ -274,25 +375,7 @@ def phase_kernels(gpu, db_path, q_path):
                20)
     plain_ms = timed(lambda: score_dense.counts_or_keys_plain(
         Kbits, bits, n_real, True), 1)
-    # yardstick: the same counts as one int8 library product of the
-    # one-hot query matrix and the unpacked bit matrix (never used by
-    # the port)
-    shifts = torch.arange(32, dtype=torch.int32, device=dev)
-    onehot = ((Kbits[:, :, None] >> shifts) & 1).reshape(qp, -1)[:, :V] \
-        .to(torch.int8).contiguous()
-    # the unpacked bits (V, positions) are stored column-major, the layout
-    # the int8 library product takes for its second operand
-    unpacked_t = torch.empty((words * 32, V), dtype=torch.int8, device=dev)
-    for r0 in range(0, V, 2048):
-        unpacked_t[:, r0:r0 + 2048] = ((bits[r0:r0 + 2048, :, None] >> shifts)
-                                       & 1).reshape(-1, words * 32).t()
-    unpacked = unpacked_t.t()
-    lib = torch._int_mm(onehot, unpacked)
-    torch.cuda.synchronize()
-    require(torch.equal(lib, counts), "library product differs from K1")
-    library_ms = timed(lambda: torch._int_mm(onehot, unpacked), 5)
-    del unpacked, unpacked_t, lib
-    torch.cuda.empty_cache()
+    library_ms = int_mm_yardstick(Kbits, bits, counts, "K1")
     nnz = int(sum(k.size for k in klists))
     k1_bytes = (Kbits.numel() + bits.numel() + got.numel()) * 4
     k1_ops = 2 * nnz * words * 32
@@ -306,7 +389,7 @@ def phase_kernels(gpu, db_path, q_path):
                 "launches": cuda_lib.LAUNCHES["score_dense"], "card": gpu})
     emit(out[-1])
 
-    # K2: forward of each query against its top-1 candidate (the prefetch)
+    # K2 + K3: each query aligned with its top-1 candidate (the prefetch)
     _, top = score_dense.dense_topk(V, words, qp, 1)(Kbits, bits, n_real)
     M = nw_batch._bucket(max(len(s) for s in qseqs))
     N = di.db_codes_width
@@ -319,30 +402,42 @@ def phase_kernels(gpu, db_path, q_path):
     tlen = torch.clamp(di.tlen_by_pos_dev[p], max=N).to(torch.int32)
     args = (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
             qlen, t4T, tlen)
-    fwd = nw_rowscan.build_forward(ctx.aligner._key)
+    out.extend(nw_records(gpu, ctx.aligner._key, ctx.scheme, args, ""))
+    return {o["kernel"]: o for o in out}
+
+
+def nw_records(gpu, key, scheme, args, tag: str):
+    """K2 and K3 on one batch of forward inputs (qmT, amT, qlen, t4T,
+    tlen): each against its plain version, timed, with its bound."""
+    import torch
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_rowscan
+    qmT, _, qlen, t4T, tlen = args
+    M, B = qmT.shape
+    N = t4T.shape[0]
+    key = tuple(int(v) for v in key)
+    fwd = nw_rowscan.build_forward(key)
     cuda_lib.reset_launches()
     s_k, o_k, d_k = fwd(*args)
-    track = nw_rowscan.overflow_possible(ctx.aligner._key, M, N)
-    score_min = ctx.scheme.score_min()
-    s_p, o_p, d_p = nw_rowscan.forward_plain(
-        tuple(int(v) for v in ctx.aligner._key), score_min, track, *args)
+    track = nw_rowscan.overflow_possible(key, M, N)
+    score_min = scheme.score_min()
+    s_p, o_p, d_p = nw_rowscan.forward_plain(key, score_min, track, *args)
     torch.cuda.synchronize()
     err2 = max(max_abs_err(s_k, s_p), max_abs_err(o_k, o_p),
                max_abs_err(d_k, d_p))
-    require(err2 == 0, "K2 differs from its plain version")
+    require(err2 == 0, "K2 differs from its plain version" + tag)
+    del s_p, o_p, d_p
     ms = timed(lambda: fwd(*args), 3)
     plain_ms = timed(lambda: nw_rowscan.forward_plain(
-        tuple(int(v) for v in ctx.aligner._key), score_min, track, *args), 1)
-    cells = M * N * qp
+        key, score_min, track, *args), 1)
+    cells = M * N * B
     k2_bytes = (sum(a.numel() * a.element_size() for a in args)
                 + s_k.numel() * 4 + o_k.numel() + d_k.numel() * 2)
     bound_ms, bound_by = bound(k2_bytes, cells * NW_CELL_OPS, INT32_OPS)
-    out.append({"kernel": "nw_rowscan", "shape": {"B": qp, "M": M, "N": N},
-                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "gcups": cells / (ms * 1e-3) / 1e9,
-                "max_abs_err": err2,
-                "launches": cuda_lib.LAUNCHES["nw_rowscan"], "card": gpu})
+    out = [{"kernel": "nw_rowscan" + tag, "shape": {"B": B, "M": M, "N": N},
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "gcups": cells / (ms * 1e-3) / 1e9, "max_abs_err": err2,
+            "launches": cuda_lib.LAUNCHES["nw_rowscan"], "card": gpu}]
     emit(out[-1])
 
     # K3: backtrack of those alignments
@@ -351,22 +446,151 @@ def phase_kernels(gpu, db_path, q_path):
     ops_p = nw_batch.backtrack_rle_plain(d_k, qlen, tlen)
     torch.cuda.synchronize()
     err3 = max_abs_err(ops_k, ops_p)
-    require(err3 == 0, "K3 differs from its plain version")
+    require(err3 == 0, "K3 differs from its plain version" + tag)
     ms = timed(lambda: nw_batch.backtrack_rle(d_k, qlen, tlen), 10)
     plain_ms = timed(lambda: nw_batch.backtrack_rle_plain(d_k, qlen, tlen),
                      1)
     steps = int((ops_k != 0).sum())
     # data-dependent: the dirs cells on the walked paths, lengths, ops out
-    k3_bytes = steps * 2 + 2 * qp * 4 + ops_k.numel() * 2
+    k3_bytes = steps * 2 + 2 * B * 4 + ops_k.numel() * 2
     bound_ms, bound_by = bound(k3_bytes, steps * 10, INT32_OPS)
-    out.append({"kernel": "nw_backtrack", "shape": {"B": qp, "M": M, "N": N,
-                                                    "steps": steps},
+    out.append({"kernel": "nw_backtrack" + tag,
+                "shape": {"B": B, "M": M, "N": N, "steps": steps},
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "max_abs_err": err3,
                 "launches": cuda_lib.LAUNCHES["nw_backtrack"], "card": gpu})
     emit(out[-1])
-    return {o["kernel"]: o for o in out}
+    return out
+
+
+def phase_cluster_kernels(gpu, amp_path):
+    """K4 at the full clustering width, then K2 and K3 at the cluster
+    prefetch's shape, on inputs from the amp100k cell: a growing index of
+    the first member of every family (the centroids a run ends with,
+    heap ranks a random permutation) at the capacity the run sizes, 102 400
+    positions, scored by a 512-query round of other members, whose
+    compacted top-8 candidates then fill the prefetch's 2048 lanes."""
+    import numpy as np
+    import torch
+    from vsearch_tpu_torch import cli, device
+    from vsearch_tpu_torch.core.cluster import ClusterEngine
+    from vsearch_tpu_torch.ops import cuda_lib, kmer, nw_batch, score_dense
+    from vsearch_tpu_torch.ops import score_grow
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+
+    dev = device.select("cuda")
+    params = cli.parse_args(["--cluster_size", str(amp_path)] + CLUSTER_ARGS)
+    w = params.opt_wordlength
+    seqs = read_fasta(amp_path)
+    rng = np.random.default_rng(AMP_SEED)
+    cent = seqs[0::4]
+    n = len(cent)
+    seqno = rng.permutation(n)
+    seq_of = dict(zip(seqno.tolist(), cent)).__getitem__
+    # as ClusterEngine._device_capacity sizes it at activation
+    cap = max(2 * ClusterEngine.DEVICE_MIN, 40960, len(seqs))
+    g = score_grow.GrowingDeviceKmerIndex.build(
+        w, [kmer.unique_kmer_set(s, w, params.opt_qmask) for s in cent],
+        [len(s) for s in cent], seqno.tolist(), capacity=cap, device=dev)
+    g.attach_codes(nw_batch._bucket(max(len(s) for s in cent)), seq_of)
+    qp = ClusterEngine.DEVICE_ROUND
+    pick = rng.choice(n, size=qp) * 4 + rng.integers(1, 4, size=qp)
+    qseqs = [seqs[i] for i in pick.tolist()]
+    klists = [kmer.unique_kmer_set(s, w, params.opt_qmask) for s in qseqs]
+    V = g.hashsize
+    Kbits = torch.from_numpy(score_dense.pack_query_bits(
+        klists, qp, V).view(np.int32)).to(dev)
+    bits = g.bits[:V]
+    rank = g._ranks()
+    out = {}
+
+    cuda_lib.reset_launches()
+    got = score_dense.ranked_keys(Kbits, bits, rank)
+    ref = score_dense.ranked_keys_plain(Kbits, bits, rank)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    require(err == 0, "K4 differs from its plain version")
+    require(int((got >= 0).sum()) == qp * n, "K4 keys of empty positions")
+    del ref
+    launches = cuda_lib.LAUNCHES["score_ranked"]
+    ms = timed(lambda: score_dense.ranked_keys(Kbits, bits, rank), 20)
+    plain_ms = timed(lambda: score_dense.ranked_keys_plain(
+        Kbits, bits, rank), 1)
+    counts = score_dense.counts_or_keys(Kbits, bits, 0, False)
+    library_ms = int_mm_yardstick(Kbits, bits, counts, "K4")
+    del counts
+    nnz = int(sum(k.size for k in klists))
+    n_cols = g.words * 32
+    k4_bytes = (Kbits.numel() + bits.numel() + rank.numel()
+                + got.numel()) * 4
+    bound_ms, bound_by = bound(k4_bytes, 2 * nnz * n_cols, INT8_TC_OPS)
+    out["score_ranked"] = {
+        "kernel": "score_ranked",
+        "shape": {"qp": qp, "V": V, "words": g.words, "occupied": n,
+                  "ids": nnz},
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+        "launches": launches, "card": gpu}
+    emit(out["score_ranked"])
+    del got
+    torch.cuda.empty_cache()
+
+    # the prefetch's forward inputs: compact_gather's lanes and gathers
+    K = ClusterEngine.PREFETCH_K
+    R = ClusterEngine.PREFETCH_LANES
+    vals, idx = score_dense.dense_topk_ranked(V, g.words, qp, K)(
+        Kbits, bits, rank)
+    mm = torch.tensor([min(params.opt_minwordmatches, k.size)
+                       for k in klists], dtype=torch.int32, device=dev)
+    lanes = nw_batch.compact_lanes(vals, idx, mm, K, R, g.n)
+    live = lanes < qp * K
+    lane_c = torch.where(live, lanes, 0).long()
+    q_idx = lane_c % qp
+    pos = idx.reshape(-1)[q_idx * K + lane_c // qp].long()
+    pos = torch.where(live, pos, 0)
+    M = nw_batch._bucket(max(len(s) for s in qseqs))
+    N = g.codes_width
+    scheme = ScoreScheme.from_params(params)
+    key = nw_batch.BatchAligner(scheme, dev)._key
+    qmT, amT = nw_batch.encode_rowT(qseqs, qp, M, scheme.mismatch,
+                                    scheme.n_mismatch)
+    qlen = torch.tensor([len(s) for s in qseqs], dtype=torch.int32,
+                        device=dev)
+    args = (torch.from_numpy(qmT).to(dev)[:, q_idx].contiguous(),
+            torch.from_numpy(amT).to(dev)[:, q_idx].contiguous(),
+            torch.where(live, qlen[q_idx], 1),
+            g.codes[pos][:, :N].t().contiguous(),
+            torch.clamp(g.tlen_dev[pos], max=N).to(torch.int32))
+    emit({"phase": "cluster_prefetch_lanes", "lanes": R,
+          "live": int(live.sum()), "card": gpu})
+    for rec in nw_records(gpu, key, scheme, args, "_cluster"):
+        out[rec["kernel"]] = rec
+    return out
+
+
+class walk_round_k2:
+    """Counts the K2 launches of the walk rounds (BatchAligner._dispatch),
+    so a run's prefetch launches are the rest."""
+
+    def __enter__(self):
+        from vsearch_tpu_torch.ops import cuda_lib, nw_batch
+        self.count = 0
+        aligner = nw_batch.BatchAligner
+        self._orig = dispatch = aligner._dispatch
+
+        def counted(this, qseqs, tseqs):
+            before = cuda_lib.LAUNCHES["nw_rowscan"]
+            handle = dispatch(this, qseqs, tseqs)
+            self.count += cuda_lib.LAUNCHES["nw_rowscan"] - before
+            return handle
+
+        aligner._dispatch = counted
+        return self
+
+    def __exit__(self, *exc):
+        from vsearch_tpu_torch.ops import nw_batch
+        nw_batch.BatchAligner._dispatch = self._orig
 
 
 def phase_parity(gpu):
@@ -391,17 +615,7 @@ def phase_parity(gpu):
                        "8", "--output_no_hits"],
         "both": ["--id", "0.8", "--strand", "both"]}
     aligner = nw_batch.BatchAligner
-    dispatch = aligner._dispatch
     crossover = aligner._native_cells_crossover
-    pair_k2 = [0]
-
-    def counted_dispatch(self, qseqs, tseqs):
-        before = cuda_lib.LAUNCHES["nw_rowscan"]
-        handle = dispatch(self, qseqs, tseqs)
-        pair_k2[0] += cuda_lib.LAUNCHES["nw_rowscan"] - before
-        return handle
-
-    aligner._dispatch = counted_dispatch
     try:
         for wname, (db, q) in workloads.items():
             forced_walk_k2 = 0
@@ -414,24 +628,25 @@ def phase_parity(gpu):
                     uc = d / ("%s.%s.%s.uc" % (wname, name, run))
                     b6 = d / ("%s.%s.%s.b6" % (wname, name, run))
                     cuda_lib.reset_launches()
-                    pair_k2[0] = 0
-                    rc = cli.main(["--usearch_global", str(q), "--db",
-                                   str(db), "--uc", str(uc), "--blast6out",
-                                   str(b6), "--threads", "1", "--quiet"]
-                                  + extra,
-                                  device="cpu" if run == "cpu" else "cuda")
+                    with walk_round_k2() as walk:
+                        rc = cli.main(["--usearch_global", str(q), "--db",
+                                       str(db), "--uc", str(uc),
+                                       "--blast6out", str(b6), "--threads",
+                                       "1", "--quiet"] + extra,
+                                      device="cpu" if run == "cpu"
+                                      else "cuda")
                     require(rc == 0, "usearch_global failed (%s)" % run)
                     outs[run] = (uc.read_bytes(), b6.read_bytes())
                     if run == "cpu":
                         continue
                     launches = dict(cuda_lib.LAUNCHES)
                     if run == "cuda_forced":
-                        forced_walk_k2 += pair_k2[0]
+                        forced_walk_k2 += walk.count
                     emit({"phase": "parity_launches", "workload": wname,
                           "options": name, "run": run, "launches": launches,
-                          "nw_rowscan_walk_rounds": pair_k2[0],
+                          "nw_rowscan_walk_rounds": walk.count,
                           "nw_rowscan_prefetch":
-                              launches["nw_rowscan"] - pair_k2[0],
+                              launches["nw_rowscan"] - walk.count,
                           "card": gpu})
                 require(outs["cuda"] == outs["cpu"],
                         "cuda and cpu outputs differ (%s, %s)"
@@ -448,8 +663,88 @@ def phase_parity(gpu):
                 require(forced_walk_k2 > 0,
                         "no walk round of the families reached K2")
     finally:
-        aligner._dispatch = dispatch
         aligner._native_cells_crossover = crossover
+
+
+def phase_cluster_parity(gpu):
+    """Clustering of the small family workload (write_cluster_workload)
+    with the device tier from the 16th centroid on, so it takes over after
+    the first 256-sequence round: --cluster_fast, --cluster_size and
+    --cluster_size --strand both, each on cuda and on cpu (the plain
+    versions); uc and centroids must be byte-equal, and each cuda run must
+    launch K4, K2 and K3 and no plain version.  Its K2 launches are split
+    into the walk rounds' and the prefetch's."""
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.core.cluster import ClusterEngine
+    from vsearch_tpu_torch.ops import cuda_lib
+    d = WORK / "cparity"
+    d.mkdir(parents=True, exist_ok=True)
+    fa = write_cluster_workload(d)
+    runs = {"fast": ["--cluster_fast", str(fa), "--id", "0.97"],
+            "size": ["--cluster_size", str(fa), "--id", "0.97"],
+            "size_both": ["--cluster_size", str(fa), "--id", "0.9",
+                          "--strand", "both"]}
+    saved = ClusterEngine.DEVICE_MIN
+    ClusterEngine.DEVICE_MIN = 16
+    try:
+        for name, args in runs.items():
+            outs = {}
+            for run in ("cuda", "cpu"):
+                uc = d / ("%s.%s.uc" % (name, run))
+                cent = d / ("%s.%s.fa" % (name, run))
+                cuda_lib.reset_launches()
+                with walk_round_k2() as walk:
+                    rc = cli.main(args + ["--uc", str(uc), "--centroids",
+                                          str(cent), "--threads", "1",
+                                          "--quiet"], device=run)
+                require(rc == 0, "%s failed (%s)" % (args[0], run))
+                outs[run] = (uc.read_bytes(), cent.read_bytes())
+                if run == "cpu":
+                    continue
+                launches = dict(cuda_lib.LAUNCHES)
+                require(all(launches[k] > 0 for k in CLUSTER_KERNELS),
+                        "a kernel of the cluster path did not launch (%s)"
+                        % name)
+                require(not any(cuda_lib.PLAIN_CALLS.values()),
+                        "a plain version ran on the card (%s)" % name)
+                emit({"phase": "cluster_parity_launches", "options": name,
+                      "launches": launches,
+                      "nw_rowscan_walk_rounds": walk.count,
+                      "nw_rowscan_prefetch":
+                          launches["nw_rowscan"] - walk.count,
+                      "card": gpu})
+            require(outs["cuda"] == outs["cpu"],
+                    "cuda and cpu cluster outputs differ (%s)" % name)
+            lines = outs["cuda"][0].splitlines()
+            members = sum(1 for ln in lines if ln[:2] in (b"S\t", b"H\t"))
+            require(members == 800, "uc of %s has %d S/H lines"
+                    % (name, members))
+            emit({"phase": "cluster_parity", "options": name, "equal": True,
+                  "uc_lines": len(lines), "card": gpu})
+    finally:
+        ClusterEngine.DEVICE_MIN = saved
+
+
+def trace(run) -> dict:
+    """run() once under torch.profiler: its wall seconds, the device's busy
+    time, its idle share and the device time of the top kernels by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        seconds = run()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end_us, by_name = 0.0, float("-inf"), {}
+    for start, stop, name in spans:
+        busy_us += max(0.0, stop - max(start, end_us))
+        end_us = max(end_us, stop)
+        name = name.split("(")[0]
+        by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"seconds": seconds, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / seconds,
+            "device_ms_by_name": dict(top)}
 
 
 def phase_full(gpu, db_path, q_path):
@@ -473,8 +768,9 @@ def phase_full(gpu, db_path, q_path):
     launches = dict(cuda_lib.LAUNCHES)
     require(not any(cuda_lib.PLAIN_CALLS.values()),
             "a plain version ran on the main path")
-    for name, n in launches.items():
-        require(n > 0, "kernel %s was not launched on the main path" % name)
+    for name in SEARCH_KERNELS:
+        require(launches[name] > 0,
+                "kernel %s was not launched on the search path" % name)
     lines = (WORK / "full.uc").read_bytes().splitlines()
     require(len(lines) == N_QUERIES, "uc has %d lines" % len(lines))
     hits = sum(1 for ln in lines if ln.startswith(b"H\t"))
@@ -488,29 +784,77 @@ def phase_full(gpu, db_path, q_path):
     # the same run once more under the profiler: device time by kernel,
     # the share of the run's wall time in which the device was idle, and
     # the host's time by pipeline phase (utils/phasetimer)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from vsearch_tpu_torch.utils import phasetimer
     phasetimer.ENABLED = True
     phasetimer.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        traced = run(q_path, WORK / "traced.uc")
+    traced = trace(lambda: run(q_path, WORK / "traced.uc"))
     phasetimer.ENABLED = False
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end_us, by_name = 0.0, float("-inf"), {}
-    for start, stop, name in spans:
-        busy_us += max(0.0, stop - max(start, end_us))
-        end_us = max(end_us, stop)
-        name = name.split("(")[0]
-        by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "full_traced", "seconds": traced,
-          "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / 1e6 / traced,
-          "device_ms_by_name": dict(top),
-          "host_phase_s": dict(phasetimer.acc), "card": gpu})
+    emit(dict({"phase": "full_traced"}, **traced,
+              host_phase_s=dict(phasetimer.acc), card=gpu))
+    return launches
+
+
+def phase_cluster_full(gpu, amp_path):
+    """The clustering cell: amp100k through --cluster_size --id 0.97
+    --sizein --sizeout with the production DEVICE_MIN, timed once (the
+    kernels are built and loaded by the earlier phases), the launches read
+    around it; then the same run under torch.profiler.  Both print the
+    host's time by pipeline phase."""
+    import torch
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops import cuda_lib
+    n_seqs = 4 * AMP_FAMILIES
+
+    def run(tag):
+        t0 = time.perf_counter()
+        rc = cli.main(["--cluster_size", str(amp_path), "--uc",
+                       str(WORK / ("%s.uc" % tag)), "--centroids",
+                       str(WORK / ("%s.fa" % tag))] + CLUSTER_ARGS,
+                      device="cuda")
+        torch.cuda.synchronize()
+        require(rc == 0, "cluster_size failed")
+        return time.perf_counter() - t0
+
+    # host time by pipeline phase (utils/phasetimer: a clock read per span)
+    from vsearch_tpu_torch.utils import phasetimer
+    phasetimer.ENABLED = True
+    torch.cuda.reset_peak_memory_stats()
+    phasetimer.reset()
+    cuda_lib.reset_launches()
+    with walk_round_k2() as walk:
+        elapsed = run("cluster")
+    launches = dict(cuda_lib.LAUNCHES)
+    host_phase_s = dict(phasetimer.acc)
+    require(not any(cuda_lib.PLAIN_CALLS.values()),
+            "a plain version ran on the cluster path")
+    for name in CLUSTER_KERNELS:
+        require(launches[name] > 0,
+                "kernel %s was not launched on the cluster path" % name)
+    lines = (WORK / "cluster.uc").read_bytes().splitlines()
+    members = sum(1 for ln in lines if ln[:2] in (b"S\t", b"H\t"))
+    clusters = sum(1 for ln in lines if ln.startswith(b"S\t"))
+    require(members == n_seqs, "uc has %d S/H lines" % members)
+    require(sum(1 for ln in lines if ln.startswith(b"C\t")) == clusters,
+            "uc C lines do not count the clusters")
+    require((WORK / "cluster.fa").read_bytes().count(b">") == clusters,
+            "centroids do not count the clusters")
+    emit({"phase": "cluster_full", "sequences": n_seqs,
+          "seq_len": AMP_LEN, "seconds": elapsed,
+          "sequences_per_s": n_seqs / elapsed, "clusters": clusters,
+          "launches": launches,
+          "device_rounds": launches["score_ranked"],
+          "nw_rowscan_walk_rounds": walk.count,
+          "nw_rowscan_prefetch": launches["nw_rowscan"] - walk.count,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "host_phase_s": host_phase_s, "card": gpu})
+    phasetimer.reset()
+    traced = trace(lambda: run("cluster_traced"))
+    phasetimer.ENABLED = False
+    k2 = sum(ms for name, ms in traced["device_ms_by_name"].items()
+             if "nw_rowscan" in name)
+    emit(dict({"phase": "cluster_full_traced"}, **traced,
+              nw_rowscan_share=k2 / 1e3 / traced["seconds"],
+              host_phase_s=dict(phasetimer.acc), card=gpu))
     return launches
 
 
@@ -525,28 +869,44 @@ def main() -> int:
     phase_build(gpu)
     t0 = time.perf_counter()
     db_path, q_path = generate(WORK)
+    amp_path = generate_amp(WORK / "amp100k.fasta")
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "card": gpu})
     kern = phase_kernels(gpu, db_path, q_path)
+    kern.update(phase_cluster_kernels(gpu, amp_path))
     phase_parity(gpu)
-    launches = phase_full(gpu, db_path, q_path)
+    phase_cluster_parity(gpu)
+    by_path = {"usearch_global": phase_full(gpu, db_path, q_path),
+               "cluster_size": phase_cluster_full(gpu, amp_path)}
     sources = {
         "score_dense": ("vsearch_tpu_torch/csrc/score_dense.cu",
                         "vsearch_tpu/ops/score_mxu.py:130"),
+        "score_ranked": ("vsearch_tpu_torch/csrc/score_dense.cu",
+                         "vsearch_tpu/ops/score_mxu.py:266"),
         "nw_rowscan": ("vsearch_tpu_torch/csrc/nw_rowscan.cu",
                        "vsearch_tpu/ops/nw_pallas2.py:387"),
         "nw_backtrack": ("vsearch_tpu_torch/csrc/nw_backtrack.cu",
                          "vsearch_tpu/ops/nw_jax.py:320"),
     }
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"],
-         "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"],
-         "library_ms": kern[name]["library_ms"]}
-        for name, (src, rep) in sources.items()]})
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+    line = []
+    for name, (src, rep) in sources.items():
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep,
+                 "launches": sum(n[name] for n in by_path.values()),
+                 "launches_by_path": {p: n[name]
+                                      for p, n in by_path.items()}}
+        entry.update({f: kern[name][f] for f in fields})
+        # K2 and K3 run on both paths: their numbers above are at the
+        # search prefetch's shape, these at the cluster prefetch's
+        if name + "_cluster" in kern:
+            entry["cluster_shape"] = {f: kern[name + "_cluster"][f]
+                                      for f in fields}
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       kern[name + "_cluster"]["max_abs_err"])
+        line.append(entry)
+    emit({"kernels": line})
     print(gpu)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_rowscan, score_dense
+from vsearch_tpu_torch.ops import (cuda_lib, nw_batch, nw_rowscan,
+                                   score_dense, score_grow)
 from vsearch_tpu_torch.ops.nw import ScoreScheme
 from vsearch_tpu_torch.params import Parameters
 
@@ -59,6 +60,80 @@ def test_score_dense_kernel_matches_plain(cuda_device, wordlength, words, qp):
         torch.cuda.synchronize()
         assert cuda_lib.LAUNCHES["score_dense"] == before + 1
         assert _same(ref, got)
+
+
+@pytest.mark.parametrize("wordlength,words,qp", [(2, 130, 5), (5, 700, 96),
+                                                 (8, 128, 17)])
+def test_score_ranked_kernel_matches_plain(cuda_device, wordlength, words,
+                                           qp):
+    """K4 on a view of the growing index's (V+1)-row matrix, with a third
+    of the positions unranked (empty), against its plain version; then the
+    ranked top-k on both devices."""
+    rng = np.random.default_rng(wordlength + 10)
+    V = 1 << (2 * wordlength)
+    bits = rng.integers(0, 2 ** 32, size=(V + 1, words), dtype=np.uint32)
+    qlists = [np.sort(rng.choice(V, size=int(rng.integers(0, min(V, 600))),
+                                 replace=False)).astype(np.uint32)
+              for _ in range(qp)]
+    Kb = torch.from_numpy(score_dense.pack_query_bits(qlists, qp, V)
+                          .view(np.int32))
+    rank = np.full(words * 32, score_dense.RANK_MAX, dtype=np.int32)
+    occ = rng.choice(words * 32, size=words * 32 * 2 // 3, replace=False)
+    rank[occ] = rng.permutation(occ.size)
+    rank_t = torch.from_numpy(rank)
+    bt = torch.from_numpy(bits.view(np.int32))
+    bt_dev = bt.to(cuda_device)
+    ref = score_dense.ranked_keys(Kb, bt[:V], rank_t)
+    before = cuda_lib.LAUNCHES["score_ranked"]
+    got = score_dense.ranked_keys(Kb.to(cuda_device), bt_dev[:V],
+                                  rank_t.to(cuda_device))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["score_ranked"] == before + 1
+    assert _same(ref, got)
+    assert bool((ref == -1).any())
+    fn = score_dense.dense_topk_ranked(V, words, qp, 40)
+    for r, g in zip(fn(Kb, bt[:V], rank_t),
+                    fn(Kb.to(cuda_device), bt_dev[:V],
+                       rank_t.to(cuda_device))):
+        assert _same(r, g)
+
+
+def test_growing_index_and_compaction_cuda_match_cpu(cuda_device):
+    """The growing index's scatter appends, ranks and K4 top-k, and the
+    compacted prefetch (lane list, K2, K3) give the same results on the
+    card as on the CPU."""
+    rng = np.random.default_rng(21)
+    w = 8
+    entries = []
+    for i in range(900):
+        kl = np.unique(rng.integers(0, 1 << (2 * w), size=150,
+                                    dtype=np.uint32))
+        entries.append((kl, int(rng.integers(140, 160)), int(i)))
+    queries = [np.unique(rng.integers(0, 1 << (2 * w), size=150,
+                                      dtype=np.uint32)) for _ in range(300)]
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    seqs = {e[2]: acgt[rng.integers(0, 4, size=e[1])].tobytes()
+            for e in entries}
+    qseqs = [seqs[int(i)] for i in rng.integers(0, 900, size=len(queries))]
+    p = Parameters()
+    p.apply_defaults_fixups()
+    scheme = ScoreScheme.from_params(p)
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        g = score_grow.GrowingDeviceKmerIndex(w, capacity=40960, device=dev)
+        assert g.append_round(entries[:500])
+        g.attach_codes(192, seqs.__getitem__)
+        assert g.append_round(entries[500:])
+        q, pending = g.topk_dispatch(queries, 20)
+        (nq, (vals, idx)), = pending
+        mm = np.full(nq, 2, dtype=np.int32)
+        meta, ops = nw_batch.BatchAligner(scheme, dev).dispatch_compact(
+            qseqs, nq, vals, idx, mm, 8, 2048, g.codes, g.tlen_dev,
+            g.codes_width, g.n)
+        torch.cuda.synchronize()
+        out.append([t.cpu() for t in (g.bits, vals, idx, meta, ops)])
+    for r, g in zip(*out):
+        assert _same(r, g)
 
 
 def _default_key(n_mismatch=False, match=None):

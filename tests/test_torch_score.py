@@ -2,8 +2,9 @@
 and ops.score) against the JAX package on the same inputs.
 
 Every comparison is exact: the work is integer counts and a total order.
-The JAX side runs its Pallas kernel in interpret mode and its DeviceKmerIndex
-on the CPU (the scan path); the port runs its kernels' plain versions.
+The JAX side runs its Pallas kernels in interpret mode, its scan kernels
+and its DeviceKmerIndex on the CPU; the port runs its kernels' plain
+versions.
 """
 
 import numpy as np
@@ -11,7 +12,10 @@ import pytest
 import torch
 
 from vsearch_tpu import native as jax_native
-from vsearch_tpu.ops.score_mxu import dense_topk_kernel, pack_query_bits
+from vsearch_tpu.ops import score_grow as jax_grow
+from vsearch_tpu.ops.score_mxu import (NBLK, WBLK, dense_topk_kernel,
+                                       dense_topk_ranked_kernel,
+                                       pack_query_bits)
 from vsearch_tpu_torch.ops import score_dense
 from vsearch_tpu_torch.ops.score import DeviceKmerIndex as TorchIndex
 
@@ -125,3 +129,71 @@ def test_multiblock_index_matches_jax(monkeypatch):
         assert np.array_equal(v_j, v_t)
         assert np.array_equal(i_j, i_t)
 
+
+def _rank_vector(rng):
+    """Heap ranks in position order: the occupied positions in a random
+    order, except the last ten, left unranked (RANK_MAX) like the empty
+    columns, so the key's mask is exercised on set bits too."""
+    rank = np.full(WORDS * 32, score_dense.RANK_MAX, dtype=np.int32)
+    rank[:N_REAL - 10] = rng.permutation(N_REAL - 10)
+    return rank
+
+
+def test_ranked_topk_matches_jax(fixture):
+    """K4's plain version + torch.topk against the JAX package's dense
+    ranked kernel (Pallas, interpret mode; its rank vector permuted into
+    the kernel's column order as GrowingDeviceKmerIndex._rank_perm does)
+    and its scan kernel (_topk_ranked_kernel, rank in position order)."""
+    import jax.numpy as jnp
+    bits, qlists = fixture
+    rank = _rank_vector(np.random.default_rng(3))
+    Kb = pack_query_bits(qlists, QP, V)
+
+    j = np.arange(WORDS * 32)
+    r = j % NBLK
+    perm = (j // NBLK) * NBLK + 32 * (r % WBLK) + r // WBLK
+    v_d, i_d = dense_topk_ranked_kernel(V, WORDS, QP, K, interpret=True)(
+        jnp.asarray(Kb), jnp.asarray(bits), jnp.asarray(rank[perm]))
+
+    maxk = 64
+    ids = np.zeros((QP, maxk), dtype=np.int32)
+    kcounts = np.zeros(QP, dtype=np.int32)
+    for q, kl in enumerate(qlists):
+        ids[q, :kl.size] = kl
+        kcounts[q] = kl.size
+    v_s, i_s = jax_grow._topk_ranked_kernel(V, WORDS, QP, maxk, K)(
+        jnp.asarray(ids), jnp.asarray(kcounts), jnp.asarray(bits),
+        jnp.asarray(rank))
+
+    v_t, i_t = score_dense.dense_topk_ranked(V, WORDS, QP, K)(
+        torch.from_numpy(score_dense.pack_query_bits(qlists, QP, V)),
+        torch.from_numpy(bits[:V]), torch.from_numpy(rank))
+    assert v_t.dtype == torch.int32 and i_t.dtype == torch.int32
+    assert (v_t.numpy() >= 0).all()     # 90 ranked positions >= K
+    for v_j, i_j in ((v_d, i_d), (v_s, i_s)):
+        assert np.array_equal(np.asarray(v_j), v_t.numpy())
+        assert np.array_equal(np.asarray(i_j), i_t.numpy())
+
+
+def test_ranked_keys_plain_matches_numpy(fixture):
+    """The plain K4 keys fold independent numpy counts as
+    count<<20 | (RANK_MAX - rank), -1 where the rank is RANK_MAX; past the
+    ranked positions the top-k carries the -1 / 2^30 sentinels."""
+    bits, qlists = fixture
+    rank = _rank_vector(np.random.default_rng(4))
+    Kb = torch.from_numpy(score_dense.pack_query_bits(qlists, QP, V))
+    keys = score_dense.ranked_keys(Kb, torch.from_numpy(bits[:V]),
+                                   torch.from_numpy(rank)).numpy()
+    unpacked = np.unpackbits(bits[:V].view(np.uint8), axis=1,
+                             bitorder="little").astype(np.int64)
+    counts = np.zeros((QP, WORDS * 32), dtype=np.int64)
+    for q, kl in enumerate(qlists):
+        counts[q] = unpacked[kl.astype(np.int64)].sum(axis=0)
+    RM = score_dense.RANK_MAX
+    assert np.array_equal(keys, np.where(rank < RM, (counts << 20)
+                                         | (RM - rank), -1))
+    k = N_REAL
+    v, i = score_dense.dense_topk_ranked(V, WORDS, QP, k)(
+        Kb, torch.from_numpy(bits[:V]), torch.from_numpy(rank))
+    assert (v[:, -10:] == -1).all() and (i[:, -10:] == 2 ** 30).all()
+    assert (v[:, :-10] >= 0).all()

@@ -21,11 +21,13 @@ from .test_device_search_parity import _write_workload
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "vsearch_tpu_torch"
 
-# runs the port's CLI, then reports what ran and what was imported
+# runs the port's CLI (after the setup lines), then reports what ran and
+# what was imported
 _DRIVER = """
 import json, sys
 from vsearch_tpu_torch import cli
 from vsearch_tpu_torch.ops import cuda_lib
+%s
 rc = cli.main(sys.argv[1:])
 print(json.dumps({"rc": rc, "launches": cuda_lib.LAUNCHES,
                   "plain_calls": cuda_lib.PLAIN_CALLS,
@@ -33,13 +35,13 @@ print(json.dumps({"rc": rc, "launches": cuda_lib.LAUNCHES,
 """
 
 
-def run_port(args, cwd, device="cpu"):
+def run_port(args, cwd, device="cpu", setup=""):
     env = dict(os.environ)
     env["VSEARCH_TPU_TORCH_DEVICE"] = device
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    proc = subprocess.run([sys.executable, "-c", _DRIVER] + args, cwd=cwd,
-                          env=env, capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", _DRIVER % setup] + args,
+                          cwd=cwd, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -105,5 +107,9 @@ def test_port_imports_neither_jax_nor_vsearch_tpu():
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
                  if bad.search(p.read_text())]
     assert not offenders
+    # K4 (score_ranked) shares K1's source
+    from vsearch_tpu_torch.ops import cuda_lib
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "nw_backtrack.cu", "nw_rowscan.cu", "score_dense.cu"]
+    assert {s + ".cu" for s in cuda_lib.SOURCES.values()} == {
+        "nw_backtrack.cu", "nw_rowscan.cu", "score_dense.cu"}

@@ -656,6 +656,11 @@ def dispatch(params: Parameters) -> None:
         from .commands.usearch_global import usearch_global
         usearch_global(params)
         return
+    if command in ("cluster_fast", "cluster_size", "cluster_smallmem",
+                   "cluster_unoise"):
+        from .commands.cluster import cluster_command
+        cluster_command(params, command)
+        return
     raise CliError("Command --%s not yet ported to vsearch_tpu_torch"
                    % command)
 

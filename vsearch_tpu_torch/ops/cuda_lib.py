@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into ``build/vsearch_tpu_torch/lib<name>.so`` (a
-git-ignored directory) at first use, then loaded with ctypes.  Nothing
-here runs when a module is imported: the CPU tests import every module
-on a machine without nvcc or a card.
+Each ``csrc/<source>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/vsearch_tpu_torch/lib<source>.so`` (a
+git-ignored directory) at first use, then loaded with ctypes.  A source
+may hold more than one kernel (``SOURCES``: K1 and K4 share one body).
+Nothing here runs when a module is imported: the CPU tests import every
+module on a machine without nvcc or a card.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
 resets it, drives the main path and reads it to show which kernels ran.
@@ -27,7 +28,10 @@ from .. import native
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = native.BUILD_DIR
-KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
+# kernel -> the csrc/ source that holds it
+SOURCES = {"score_dense": "score_dense", "score_ranked": "score_dense",
+           "nw_rowscan": "nw_rowscan", "nw_backtrack": "nw_backtrack"}
+KERNELS = tuple(SOURCES)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,25 +60,25 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
-def so_path(name: str) -> pathlib.Path:
-    return BUILD_DIR / ("lib%s.so" % name)
+def so_path(source: str) -> pathlib.Path:
+    return BUILD_DIR / ("lib%s.so" % source)
 
 
-def _stale(name: str) -> bool:
-    so = so_path(name)
+def _stale(source: str) -> bool:
+    so = so_path(source)
     return (not so.exists()
-            or so.stat().st_mtime < (CSRC / (name + ".cu")).stat().st_mtime)
+            or so.stat().st_mtime < (CSRC / (source + ".cu")).stat().st_mtime)
 
 
-def build(names: Iterable[str] = KERNELS, force: bool = False
+def build(kernels: Iterable[str] = KERNELS, force: bool = False
           ) -> Dict[str, dict]:
-    """Compile the named kernels, one nvcc process per source, all started
-    together.  Returns {name: {"seconds", "ptxas"}} for what was built;
-    raises with nvcc's output if any build fails."""
+    """Compile the sources of the named kernels, one nvcc process per
+    source, all started together.  Returns {source: {"seconds", "ptxas"}}
+    for what was built; raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
+    for name in dict.fromkeys(SOURCES[k] for k in kernels):
         if not force and not _stale(name):
             continue
         tmp = so_path(name).with_name("lib%s.so.%d" % (name, os.getpid()))
@@ -97,15 +101,17 @@ def build(names: Iterable[str] = KERNELS, force: bool = False
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library, built first if missing or stale."""
+def load(kernel: str) -> ctypes.CDLL:
+    """The loaded library holding a kernel, built first if missing or
+    stale."""
+    source = SOURCES[kernel]
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(source)
         if lib is None:
-            if _stale(name):
-                build([name])
-            lib = ctypes.CDLL(str(so_path(name)))
-            _libs[name] = lib
+            if _stale(source):
+                build([kernel])
+            lib = ctypes.CDLL(str(so_path(source)))
+            _libs[source] = lib
         return lib
 
 

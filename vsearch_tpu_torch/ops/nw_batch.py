@@ -1,11 +1,13 @@
 """Batched Needleman-Wunsch on the device: row-scan forward + RLE backtrack.
 
-Counterpart of vsearch_tpu/ops/nw_jax.py for the usearch_global path.  A
-batch of query x target pairs runs the row-scan forward (K2,
-ops/nw_rowscan.py) and the run-length backtrack (K3, csrc/nw_backtrack.cu)
-on the device; only the int16 ops wire (op | count << 2, end-to-front) and
-the scores reach the host, where the native tier's assemble_batch turns
-them into CIGARs and statistics.
+Counterpart of vsearch_tpu/ops/nw_jax.py for the usearch_global and
+clustering paths.  A batch of query x target pairs runs the row-scan
+forward (K2, ops/nw_rowscan.py) and the run-length backtrack (K3,
+csrc/nw_backtrack.cu) on the device; only the int16 ops wire (op | count
+<< 2, end-to-front) and the scores reach the host, where the native tier's
+assemble_batch turns them into CIGARs and statistics.  Clustering's
+speculative prefetch (compact_gather) packs the candidate pairs that pass
+minmatches into dense lanes on the device, without a host sync.
 
 Small batches run on the host C tier instead (native
 vstpu_nw_align_batch): the crossover adapts above NATIVE_CELLS_LIMIT from
@@ -28,10 +30,17 @@ import torch
 from . import cuda_lib
 from .nw import SHRT_MAX, AlignmentResult, ScoreScheme
 from .nw_rowscan import build_forward
+from .score_dense import POS_SENTINEL
 from ..utils.maps import CHRMAP_4BIT
 
 # op codes emitted by the backtrack
 OP_NONE, OP_M, OP_D, OP_I = 0, 1, 2, 3
+
+# speculative-prefetch ops rows kept on the device (compact_gather): a
+# family pair backtracks in ~2 RLE entries and a reject-like random pair in
+# ~100-170, so the cut covers nearly every lane while shrinking the fetch;
+# lanes needing more entries go to the host aligner
+PREFETCH_OPS_CAP = 256
 
 
 def encode_padded(seqs: Sequence[bytes], rows: int, width: int) -> np.ndarray:
@@ -186,6 +195,62 @@ def gather_align(forward, qmT, amT, qlen, pos, db_codes, tlen_by_pos,
     return score, overflow, backtrack_rle(dirs, qlen, tlen)
 
 
+def compact_lanes(vals: torch.Tensor, idx: torch.Tensor, mm: torch.Tensor,
+                  K: int, R: int, n: int) -> torch.Tensor:
+    """(R,) int32 lane list of the (query, candidate) pairs among each
+    query's top K whose count passes its minmatches and whose position is
+    occupied: lane value c * qp + q for candidate rank c of query q, in
+    increasing order, truncated at R and filled with qp * K.  Candidate-
+    rank-major (all rank-0 candidates first, nw_jax.py:607-613), so a
+    truncation drops deep candidates, not whole queries.
+
+    The equal of jnp.nonzero(valid.T.reshape(-1), size=R, fill_value=qp*K)
+    without a host sync: a cumsum places each valid pair and a scatter
+    writes it into a buffer pre-filled with qp * K (pairs past R go to a
+    discarded extra slot)."""
+    qp = vals.shape[0]
+    dev = vals.device
+    valid = (vals[:, :K] >= mm[:, None]) & (idx[:, :K] < n)
+    flat = valid.t().reshape(-1)
+    dest = torch.cumsum(flat, 0) - 1
+    keep = flat & (dest < R)
+    lane = torch.full((R + 1,), qp * K, dtype=torch.int32, device=dev)
+    lane.scatter_(0, torch.where(keep, dest, R),
+                  torch.arange(qp * K, dtype=torch.int32, device=dev))
+    return lane[:R]
+
+
+def compact_gather(forward, qmT, amT, qlens, vals, idx, mm, K: int, R: int,
+                   db_codes, tlen_by_pos, N: int, n: int):
+    """Device-side candidate compaction + gather-align (counterpart of
+    nw_jax._compact_gather_kernel, nw_jax.py:586-654).
+
+    From the top-k output (vals, idx) (qp, k) and per-query minmatches mm
+    (qp,), aligns the lanes of compact_lanes: query operands gathered by
+    lane, targets by index position.  One K2 + K3 call covers all R lanes
+    (K2 takes any batch; the TPU split at 1024 lanes was a VMEM limit).
+    Returns (meta (5, R) int32 -- rows q_idx, position (2^30 on dead
+    lanes), score, overflow, nsteps -- and ops (min(S, PREFETCH_OPS_CAP),
+    R) int16).  nsteps counts a lane's nonzero ops entries before the cut:
+    a lane with nsteps above the kept rows must go to the host aligner."""
+    qp = vals.shape[0]
+    lane = compact_lanes(vals, idx, mm, K, R, n)
+    live = lane < qp * K
+    lane_c = torch.where(live, lane, 0).long()
+    q_idx = lane_c % qp
+    c_idx = lane_c // qp
+    pos = idx[:, :K].reshape(-1)[q_idx * K + c_idx]
+    pos = torch.where(live, pos, 0)
+    ql = torch.where(live, qlens[q_idx], 1)
+    score, over, ops = gather_align(forward, qmT[:, q_idx], amT[:, q_idx],
+                                    ql, pos, db_codes, tlen_by_pos, N)
+    nsteps = (ops != 0).sum(dim=0, dtype=torch.int32)
+    meta = torch.stack([q_idx.to(torch.int32),
+                        torch.where(live, pos, POS_SENTINEL),
+                        score, over.to(torch.int32), nsteps])
+    return meta, ops[:PREFETCH_OPS_CAP]
+
+
 class BatchAligner:
     """Device-batched aligner with host CIGAR/stat assembly."""
 
@@ -295,6 +360,27 @@ class BatchAligner:
         return gather_align(self._forward, self._upload(qmT),
                             self._upload(amT), self._upload(qlens), pos,
                             db_codes, tlen_by_pos, N)
+
+    def dispatch_compact(self, qseqs: Sequence[bytes], qp: int,
+                         vals: torch.Tensor, idx: torch.Tensor,
+                         mm: np.ndarray, K: int, R: int,
+                         db_codes: torch.Tensor, tlen_by_pos: torch.Tensor,
+                         N: int, n: int):
+        """Compacted speculative alignment of the top-K candidates that
+        pass minmatches, packed into R device lanes computed on the device
+        from the un-fetched top-k output (compact_gather).  Only the query
+        codes and mm are uploaded."""
+        qlens = np.ones(qp, dtype=np.int32)
+        for i, s in enumerate(qseqs):
+            qlens[i] = max(len(s), 1)
+        M = _bucket(max(len(s) for s in qseqs))
+        qmT, amT = encode_rowT(qseqs, qp, M, self.scheme.mismatch,
+                               self.scheme.n_mismatch)
+        return compact_gather(
+            self._forward, self._upload(qmT), self._upload(amT),
+            self._upload(qlens), vals, idx,
+            self._upload(np.ascontiguousarray(mm, dtype=np.int32)), K, R,
+            db_codes, tlen_by_pos, N, n)
 
     def assemble_one(self, score: int, ops_col: np.ndarray, qseq: bytes,
                      tseq: bytes) -> AlignmentResult:

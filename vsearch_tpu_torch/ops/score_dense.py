@@ -1,15 +1,17 @@
-"""Shared-k-mer counts and exact top-k for one index block (kernel K1).
+"""Shared-k-mer counts and exact top-k for one index block (kernels K1
+and K4).
 
 Counterpart of vsearch_tpu/ops/score_mxu.py.  The counts of a query chunk
 against a packed-bit index block are
 
     counts(Q, pos) = sum over the query's k-mer ids of bit pos of bits[id]
 
-computed by the hand-written CUDA kernel csrc/score_dense.cu (one thread
-per packed word, summing the bits of the query's own ids -- see the note
-there) or, for tensors on the CPU, by its plain PyTorch version below.
-Top-k selection is ``torch.topk``, where the JAX package had lax.top_k
-outside its kernel.
+computed by the hand-written CUDA kernels of csrc/score_dense.cu (one
+thread per packed word, summing the bits of the query's own ids -- see
+the note there) or, for tensors on the CPU, by their plain PyTorch
+versions below.  K1 folds the position key of a static index, K4 the rank
+key of the growing index (ops/score_grow.py).  Top-k selection is
+``torch.topk``, where the JAX package had lax.top_k outside its kernels.
 
 Exactness: the packed key count<<17 | (2^17-1-pos) is a strict total order
 equal to the reference min-heap's (count desc, position asc; positions are
@@ -37,6 +39,12 @@ DENSE_MAXK_LIMIT = 16383
 POS_BITS = 17
 POS_SENTINEL = 2 ** 30
 
+# rank key of the growing index: count<<20 | (RANK_MAX - rank); exact while
+# count <= MAX_COUNT and every occupied rank is below RANK_MAX
+RANK_BITS = 20
+RANK_MAX = (1 << RANK_BITS) - 1
+MAX_COUNT = (1 << (31 - RANK_BITS)) - 1
+
 _argtypes_set = False
 
 
@@ -47,6 +55,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.score_dense_launch.argtypes = [p, i, i, p, i, i, i, i, p, p]
         lib.score_dense_launch.restype = i
+        lib.score_ranked_launch.argtypes = [p, i, i, p, i, i, p, p, p]
+        lib.score_ranked_launch.restype = i
         _argtypes_set = True
     return lib
 
@@ -60,26 +70,39 @@ def _as_i32(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _operands(Kbits: torch.Tensor, bits: torch.Tensor, *more: torch.Tensor):
+    """Kbits and bits as int32, after the checks K1 and K4 share: Kbits has
+    the words of V = bits rows, and off the CPU every operand lies on one
+    CUDA device, contiguous."""
+    Kbits = _as_i32(Kbits)
+    bits = _as_i32(bits)
+    qw = Kbits.shape[1]
+    V = bits.shape[0]
+    if qw != (V + 31) // 32:
+        raise ValueError("Kbits has %d words per row, V=%d needs %d"
+                         % (qw, V, (V + 31) // 32))
+    if Kbits.device.type != "cpu":
+        ops = (Kbits, bits) + more
+        if not (Kbits.is_cuda
+                and all(t.device == Kbits.device for t in ops)):
+            raise ValueError("the operands must lie on the same CUDA device")
+        if not all(t.is_contiguous() for t in ops):
+            raise ValueError("the operands must be contiguous")
+    return Kbits, bits
+
+
 def counts_or_keys(Kbits: torch.Tensor, bits: torch.Tensor, n_real: int,
                    pack: bool) -> torch.Tensor:
     """(qp, 32*words) int32 counts in position order, or with ``pack`` the
     packed keys (-1 at positions >= n_real).  Kbits (qp, ceil(V/32)) and
     bits (V, words) are packed uint32/int32.  CUDA tensors launch K1; CPU
     tensors take the plain version."""
-    Kbits = _as_i32(Kbits)
-    bits = _as_i32(bits)
+    Kbits, bits = _operands(Kbits, bits)
     qp, qw = Kbits.shape
     V, words = bits.shape
-    if qw != (V + 31) // 32:
-        raise ValueError("Kbits has %d words per row, V=%d needs %d"
-                         % (qw, V, (V + 31) // 32))
     if Kbits.device.type == "cpu":
         cuda_lib.PLAIN_CALLS["score_dense"] += 1
         return counts_or_keys_plain(Kbits, bits, n_real, pack)
-    if not (Kbits.is_cuda and bits.device == Kbits.device):
-        raise ValueError("Kbits and bits must lie on the same CUDA device")
-    if not (Kbits.is_contiguous() and bits.is_contiguous()):
-        raise ValueError("Kbits and bits must be contiguous")
     out = torch.empty((qp, words * 32), dtype=torch.int32,
                       device=Kbits.device)
     rc = _lib().score_dense_launch(
@@ -113,6 +136,68 @@ def counts_or_keys_plain(Kbits: torch.Tensor, bits: torch.Tensor,
         key = out * (1 << POS_BITS) + ((1 << POS_BITS) - 1 - pos)
         out = torch.where(pos < n_real, key, torch.full_like(key, -1))
     return out
+
+
+def ranked_keys(Kbits: torch.Tensor, bits: torch.Tensor,
+                rank: torch.Tensor) -> torch.Tensor:
+    """(qp, 32*words) int32 rank keys count<<20 | (RANK_MAX - rank[pos]),
+    -1 where rank[pos] >= RANK_MAX (an empty position).  Kbits (qp,
+    ceil(V/32)) and bits (V, words) are packed uint32/int32, rank (32*words,)
+    int32 in position order.  CUDA tensors launch K4; CPU tensors take the
+    plain version."""
+    Kbits, bits = _operands(Kbits, bits, rank)
+    qp, qw = Kbits.shape
+    V, words = bits.shape
+    if rank.dtype != torch.int32 or tuple(rank.shape) != (words * 32,):
+        raise ValueError("rank must be int32 (%d,), got %s %s"
+                         % (words * 32, rank.dtype, tuple(rank.shape)))
+    if Kbits.device.type == "cpu":
+        cuda_lib.PLAIN_CALLS["score_ranked"] += 1
+        return ranked_keys_plain(Kbits, bits, rank)
+    out = torch.empty((qp, words * 32), dtype=torch.int32,
+                      device=Kbits.device)
+    rc = _lib().score_ranked_launch(
+        Kbits.data_ptr(), qp, qw, bits.data_ptr(), V, words,
+        rank.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(Kbits.device))
+    cuda_lib.check(rc, "score_ranked")
+    cuda_lib.LAUNCHES["score_ranked"] += 1
+    return out
+
+
+def ranked_keys_plain(Kbits: torch.Tensor, bits: torch.Tensor,
+                      rank: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: K1's plain counts, then the rank fold
+    (score_mxu.py:226-230)."""
+    counts = counts_or_keys_plain(Kbits, bits, 0, pack=False)
+    key = counts * (1 << RANK_BITS) + (RANK_MAX - rank)[None, :]
+    return torch.where(rank[None, :] < RANK_MAX, key,
+                       torch.full_like(key, -1))
+
+
+def dense_topk_ranked(hashsize: int, words: int, qp: int, k: int):
+    """counts + exact rank-keyed top-k for the growing index.
+
+    Returns a function of (Kbits (qp, hashsize/32), bits (hashsize, words),
+    rank (32*words,) int32) giving (counts (qp, k) int32, positions (qp, k)
+    int32) in reference heap order, with count -1 and position 2^30 where
+    fewer than k positions are occupied (the contract of
+    score_mxu.dense_topk_ranked_kernel).  Occupied ranks are distinct, so
+    the keys are and torch.topk's order is unique."""
+    n_cols = words * 32
+    if k > n_cols:
+        raise ValueError("k=%d exceeds the index's %d columns" % (k, n_cols))
+
+    def run(Kbits: torch.Tensor, bits: torch.Tensor, rank: torch.Tensor):
+        if tuple(Kbits.shape) != (qp, (hashsize + 31) // 32) \
+                or tuple(bits.shape) != (hashsize, words):
+            raise ValueError("dense_topk_ranked geometry mismatch")
+        v, pos = torch.topk(ranked_keys(Kbits, bits, rank), k, dim=1)
+        valid = v >= 0
+        return (torch.where(valid, v >> RANK_BITS, torch.full_like(v, -1)),
+                torch.where(valid, pos.to(torch.int32),
+                            torch.full_like(v, POS_SENTINEL)))
+
+    return run
 
 
 def dense_topk(hashsize: int, words: int, qp: int, k: int,

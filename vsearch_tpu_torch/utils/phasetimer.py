@@ -12,6 +12,14 @@ Phases instrumented in the usearch_global pipeline:
   align      alignment rounds (device NW + host assembly + linmem)
   walk       accept/reject replay walks (host)
   emit       hit joining + output writing
+
+and in the clustering rounds (core/cluster.py), where walk also holds the
+prefetch assembly and align nests inside walk and resolve:
+  prep       round k-mer extraction
+  dispatch   K4 top-k + compacted prefetch dispatch (device tier)
+  host_topk  candidate counting on the host tier
+  topk_fetch, prefetch, walk, align  as above
+  resolve    serial resolution with the same-round repair
 """
 
 from __future__ import annotations
