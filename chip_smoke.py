@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Two main paths: usearch_global (kernels K1, K2, K3) and greedy
-clustering (K4, K2, K3).  Phases (any failure ends the run with a non-zero
-exit and no result line):
+Three main paths: usearch_global (kernels K1, K2, K3), greedy
+clustering (K4, K2, K3) and allpairs_global (K2m, K5).  Phases (any
+failure ends the run with a non-zero exit and no result line):
 
 1. build the CUDA kernels of csrc/ with nvcc (one process per source, all
    started together) and print the build seconds and ptxas's register
@@ -16,7 +16,8 @@ exit and no result line):
    library call computing the same function where there is one, and the
    least time the card could take (bound_ms): K1, K2 and K3 at the search
    shapes, K4 at the full clustering width and K2 and K3 at the cluster
-   prefetch's shape;
+   prefetch's shape, K2m and K5 on the allpairs cell's first batch
+   (W=400, B=4096);
 3. run usearch_global through the CLI on two small workloads, three
    option sets each: on cuda as routed, on cuda with every walk round
    forced onto the device aligner, and on cpu (the plain versions); uc and
@@ -24,7 +25,9 @@ exit and no result line):
    printed, the walk rounds' K2 launches apart from the prefetch's; then
    three clustering runs of a small family workload with the device tier
    from the 16th centroid on, on cuda and on cpu, uc and centroids
-   byte-equal;
+   byte-equal; then allpairs_global on 48 sequences with five option
+   sets, on cuda and on cpu, every output byte-equal, K2m and K5 launched
+   on the stats pipeline's four and not on --acceptall (the generic path);
 4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
    sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
    --maxrejects 32, wordlength 8) through the CLI, one warm-up then one
@@ -33,8 +36,14 @@ exit and no result line):
    by kernel and its idle share.  Clustering: tools/bench_scale.py's
    amp100k cell (25 000 families x 4 members x 400 nt, seed 17) through
    --cluster_size --id 0.97 --sizein --sizeout, one timed run with the
-   launch counts read around it, then the same run under torch.profiler;
-5. one line listing every kernel with its numbers.
+   launch counts read around it, then the same run under torch.profiler.
+   Allpairs: tools/bench_scale.py's allpairs_2000 cell (2000 random
+   400 nt sequences, seed 17, 1 999 000 pairs) through --allpairs_global
+   --id 0.5 --blast6out, one timed run with the launch counts and the
+   pipeline's pair counts read around it, then the same run under
+   torch.profiler;
+5. the script's total seconds, and one line listing every kernel with its
+   numbers and its launches on each path.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA device;
 exits non-zero without one.  Imports nothing of jax or vsearch_tpu.
@@ -76,9 +85,20 @@ AMP_SEED = 17
 CLUSTER_ARGS = ["--id", "0.97", "--sizein", "--sizeout", "--threads", "1",
                 "--quiet"]
 
+# the allpairs cell: tools/bench_scale.py's allpairs_2000 (gen_fasta,
+# 2000 uniform random ACGT sequences x 400 nt), generated here from its own
+# seed; 1 999 000 pairs, 3.2e11 DP cells
+AP_SEQS = 2000
+AP_LEN = 400
+AP_SEED = 17
+AP_ARGS = ["--id", "0.5", "--threads", "1", "--quiet"]
+
 # the kernels each main path must launch
 SEARCH_KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
 CLUSTER_KERNELS = ("score_ranked", "nw_rowscan", "nw_backtrack")
+ALLPAIRS_KERNELS = ("nw_rowscan_mr", "nw_stats")
+# int32 operations of one K2m cell update (K2's and the match plane's)
+NW_MR_CELL_OPS = 25
 
 
 def card() -> str:
@@ -188,6 +208,42 @@ def generate_amp(path: pathlib.Path, families=AMP_FAMILIES,
                 fh.write(b">s%d;size=%d\n%s\n"
                          % (i, rng.integers(1, 50), s.tobytes()))
                 i += 1
+    return path
+
+
+def generate_ap(path: pathlib.Path, n=AP_SEQS, length=AP_LEN,
+                seed=AP_SEED):
+    """tools/bench_scale.py gen_fasta: n uniform random ACGT sequences of
+    one length, labelled s0, s1, ..."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    chars = alphabet[rng.integers(0, 4, size=(n, length), dtype=np.int8)]
+    with open(path, "wb") as fh:
+        fh.write(b"".join(b">s%d\n%s\n" % (i, chars[i].tobytes())
+                          for i in range(n)))
+    return path
+
+
+def write_pairs_workload(path: pathlib.Path):
+    """tests/test_allpairs_fast.py's 48 sequences (seed 21, 120-220 nt,
+    with N's): half of them mutated copies of one 180 nt base, half
+    random."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    base = rng.choice(list("ACGT"), size=180)
+    with open(path, "w") as fh:
+        for i in range(48):
+            if i % 2 == 0:
+                s = base.copy()
+                idx = rng.integers(0, 180, size=rng.integers(5, 40))
+                s[idx] = rng.choice(list("ACGTN"), size=idx.size)
+                s = s[:int(rng.integers(150, 181))]
+            else:
+                s = rng.choice(list("ACGTN"), size=int(
+                    rng.integers(120, 220)), p=[.24, .24, .24, .24, .04])
+            fh.write(">p%d;size=%d\n%s\n"
+                     % (i, rng.integers(1, 9), "".join(s)))
     return path
 
 
@@ -569,6 +625,162 @@ def phase_cluster_kernels(gpu, amp_path):
     return out
 
 
+def phase_allpairs_kernels(gpu, ap_path):
+    """K2m and K5 on the allpairs cell's first batch (W=400, B=4096: the
+    triangle's first PAIR_BATCH pairs, gathered as AllPairsDevice.run
+    gathers them), each against its plain version; K5 reads K2m's
+    planes.  No single PyTorch call computes either function."""
+    import numpy as np
+    import torch
+    from vsearch_tpu_torch import cli, device
+    from vsearch_tpu_torch.ops import allpairs_dev, cuda_lib, nw_batch
+    from vsearch_tpu_torch.ops import nw_rowscan
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+
+    dev = device.select("cuda")
+    params = cli.parse_args(["--allpairs_global", str(ap_path)] + AP_ARGS)
+    scheme = ScoreScheme.from_params(params)
+    ap = allpairs_dev.AllPairsDevice(scheme, read_fasta(ap_path)[:AP_SEQS],
+                                     dev)
+    qpos, tpos = np.triu_indices(AP_SEQS, 1)
+    B = ap.batch
+    args = ap.batch_wire(torch.from_numpy(qpos[:B]).to(dev),
+                         torch.from_numpy(tpos[:B]).to(dev))
+    _, _, _, qlen, _, tlen = args
+    W = ap.W
+    key = tuple(int(v) for v in nw_batch.BatchAligner(scheme, dev)._key)
+    track = nw_rowscan.overflow_possible(key, W, W)
+    score_min = scheme.score_min()
+    fwd = ap.forward
+    planes = (torch.empty((W, W, B), dtype=torch.uint16, device=dev),
+              torch.empty((W, W, B), dtype=torch.uint8, device=dev))
+    out = {}
+
+    cuda_lib.reset_launches()
+    got = fwd(*args, out=planes)
+    ref = nw_rowscan.forward_plain(key, score_min, track, args[0], args[1],
+                                   qlen, args[4], tlen, args[2])
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, r) for g, r in zip(got, ref))
+    require(err == 0, "K2m differs from its plain version")
+    launches = cuda_lib.LAUNCHES["nw_rowscan_mr"]
+    del ref
+    ms = timed(lambda: fwd(*args, out=planes), 3)
+    plain_ms = timed(lambda: nw_rowscan.forward_plain(
+        key, score_min, track, args[0], args[1], qlen, args[4], tlen,
+        args[2]), 1)
+    # K2 on the same inputs, for what the match plane costs at this shape,
+    # and K2m on three later batches of the triangle, one launch each
+    k2 = nw_rowscan.build_forward(key)
+    k2_args = (args[0], args[1], qlen, args[4], tlen)
+    k2_ms = timed(lambda: k2(*k2_args), 3)
+    # (into planes of their own: K5 below reads the first batch's)
+    later = [ap.batch_wire(torch.from_numpy(qpos[k * B:(k + 1) * B]).to(dev),
+                           torch.from_numpy(tpos[k * B:(k + 1) * B]).to(dev))
+             for k in (100, 200, 300)]
+    later_planes = tuple(torch.empty_like(p) for p in planes)
+
+    def run_later():
+        for a in later:
+            fwd(*a, out=later_planes)
+    later_ms = timed(run_later, 1) / len(later)
+    del later_planes
+    torch.cuda.empty_cache()
+    cells = W * W * B
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + B * 4 + B + cells * 3)
+    bound_ms, bound_by = bound(nbytes, cells * NW_MR_CELL_OPS, INT32_OPS)
+    out["nw_rowscan_mr"] = {
+        "kernel": "nw_rowscan_mr", "shape": {"B": B, "M": W, "N": W},
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "gcups": cells / (ms * 1e-3) / 1e9, "max_abs_err": err,
+        "mr_max": int(got[3].max()), "nw_rowscan_same_inputs_ms": k2_ms,
+        "later_batches_ms": later_ms,
+        "launches": launches, "card": gpu}
+    emit(out["nw_rowscan_mr"])
+
+    # K5 on those planes; K3 walks the same path, so its nonzero ops
+    # count the walk's steps
+    dirs, mr = got[2], got[3]
+    cuda_lib.reset_launches()
+    st = allpairs_dev.stats_walk(dirs, mr, qlen, tlen)
+    st_ref = allpairs_dev.stats_walk_plain(dirs, mr, qlen, tlen)
+    steps = int((nw_batch.backtrack_rle_plain(dirs, qlen, tlen) != 0).sum())
+    torch.cuda.synchronize()
+    err = max_abs_err(st, st_ref)
+    require(err == 0, "K5 differs from its plain version")
+    launches = cuda_lib.LAUNCHES["nw_stats"]
+    ms = timed(lambda: allpairs_dev.stats_walk(dirs, mr, qlen, tlen), 10)
+    plain_ms = timed(lambda: allpairs_dev.stats_walk_plain(
+        dirs, mr, qlen, tlen), 1)
+    # data-dependent: the dirs and mr cells on the walked paths, lengths,
+    # stats out
+    nbytes = steps * 3 + 2 * B * 4 + st.numel() * 4
+    bound_ms, bound_by = bound(nbytes, steps * 15, INT32_OPS)
+    cols = st.to(torch.float64).mean(dim=0).tolist()
+    out["nw_stats"] = {
+        "kernel": "nw_stats", "shape": {"B": B, "M": W, "N": W,
+                                        "steps": steps},
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+        "mean_stats": dict(zip(allpairs_dev.STATS_COLUMNS, cols)),
+        "launches": launches, "card": gpu}
+    emit(out["nw_stats"])
+    del got, planes, dirs, mr
+    torch.cuda.empty_cache()
+    return out
+
+
+class allpairs_counts:
+    """Counts, in the allpairs command's fast path, the pairs it sends
+    through the device pipeline, the overflow pairs, the pairs the stats
+    accept and the pairs it aligns again through SearchContext.align_pairs
+    (overflow and accepted)."""
+
+    def __enter__(self):
+        from vsearch_tpu_torch.commands import allpairs
+        from vsearch_tpu_torch.core.search import SearchContext
+        from vsearch_tpu_torch.ops.allpairs_dev import AllPairsDevice
+        self.pairs = self.overflow = self.accepted = self.realigned = 0
+        self._saved = (AllPairsDevice.run, allpairs._accept_mask,
+                       SearchContext.align_pairs)
+        run, accept, align = self._saved
+
+        def counted_run(this, qpos, tpos):
+            over, stats = run(this, qpos, tpos)
+            self.pairs += len(qpos)
+            self.overflow += int(over.sum())
+            self._over = over
+            return over, stats
+
+        def counted_accept(*a):
+            ok = accept(*a)
+            self.accepted += int((ok & ~self._over).sum())
+            return ok
+
+        def counted_align(this, pairs):
+            self.realigned += len(pairs)
+            return align(this, pairs)
+
+        AllPairsDevice.run = counted_run
+        allpairs._accept_mask = counted_accept
+        SearchContext.align_pairs = counted_align
+        return self
+
+    def __exit__(self, *exc):
+        from vsearch_tpu_torch.commands import allpairs
+        from vsearch_tpu_torch.core.search import SearchContext
+        from vsearch_tpu_torch.ops.allpairs_dev import AllPairsDevice
+        (AllPairsDevice.run, allpairs._accept_mask,
+         SearchContext.align_pairs) = self._saved
+
+    def record(self) -> dict:
+        return {"pairs": self.pairs, "overflow_pairs": self.overflow,
+                "accepted_by_stats": self.accepted,
+                "realigned_pairs": self.realigned}
+
+
 class walk_round_k2:
     """Counts the K2 launches of the walk rounds (BatchAligner._dispatch),
     so a run's prefetch launches are the rest."""
@@ -725,6 +937,59 @@ def phase_cluster_parity(gpu):
         ClusterEngine.DEVICE_MIN = saved
 
 
+def phase_allpairs_parity(gpu):
+    """allpairs_global on the 48 sequences of write_pairs_workload, five
+    option sets, each on cuda and on cpu (the plain versions): every output
+    byte-equal.  The four stats-pipeline sets must launch K2m and K5 (and
+    no plain version); --acceptall takes the generic path and launches
+    neither."""
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops import cuda_lib
+    d = WORK / "aparity"
+    d.mkdir(parents=True, exist_ok=True)
+    fa = write_pairs_workload(d / "ap48.fasta")
+    option_sets = {
+        "basic": ["--id", "0.5", "--blast6out", "{o}.b6", "--uc",
+                  "{o}.uc"],
+        "userout": ["--id", "0.45", "--userout", "{o}.user", "--userfields",
+                    "query+target+id+alnlen+mism+opens+qlo+qhi+tlo+thi+raw+"
+                    "caln+qcov+tcov+id3", "--output_no_hits", "--matched",
+                    "{o}.m", "--notmatched", "{o}.nm"],
+        "iddef0_maxhits": ["--id", "0.4", "--iddef", "0", "--maxhits", "2",
+                           "--blast6out", "{o}.b6"],
+        "leftjust": ["--id", "0.3", "--leftjust", "--blast6out", "{o}.b6"],
+        "acceptall": ["--acceptall", "--blast6out", "{o}.b6", "--uc",
+                      "{o}.uc"]}
+    for name, opts in option_sets.items():
+        outs = {}
+        for run in ("cuda", "cpu"):
+            tag = str(d / ("%s.%s" % (name, run)))
+            files = [x.replace("{o}", tag) for x in opts]
+            cuda_lib.reset_launches()
+            with allpairs_counts() as counts:
+                rc = cli.main(["--allpairs_global", str(fa),
+                               "--minseqlength", "1", "--threads", "1",
+                               "--quiet"] + files, device=run)
+            require(rc == 0, "allpairs_global failed (%s, %s)"
+                    % (name, run))
+            outs[run] = [pathlib.Path(f).read_bytes() for f in files
+                         if f.startswith(tag)]
+            if run == "cpu":
+                continue
+            launches = dict(cuda_lib.LAUNCHES)
+            require(not any(cuda_lib.PLAIN_CALLS.values()),
+                    "a plain version ran on the card (%s)" % name)
+            fast = name != "acceptall"
+            require(all((launches[k] > 0) == fast for k in ALLPAIRS_KERNELS),
+                    "K2m/K5 launches do not fit the path (%s)" % name)
+            emit({"phase": "allpairs_parity_launches", "options": name,
+                  "launches": launches, **counts.record(), "card": gpu})
+        require(outs["cuda"] == outs["cpu"],
+                "cuda and cpu allpairs outputs differ (%s)" % name)
+        emit({"phase": "allpairs_parity", "options": name, "equal": True,
+              "bytes": [len(b) for b in outs["cuda"]], "card": gpu})
+
+
 def trace(run) -> dict:
     """run() once under torch.profiler: its wall seconds, the device's busy
     time, its idle share and the device time of the top kernels by name."""
@@ -858,26 +1123,92 @@ def phase_cluster_full(gpu, amp_path):
     return launches
 
 
+def phase_allpairs_full(gpu, ap_path):
+    """The allpairs cell: tools/bench_scale.py's allpairs_2000 shape
+    through --allpairs_global --id 0.5 --blast6out, timed once (the kernels
+    are built and loaded by phase 2), the launches and the pipeline's pair
+    counts read around it; then the same run under torch.profiler with the
+    host phase timer on."""
+    import torch
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops import cuda_lib
+    from vsearch_tpu_torch.utils import phasetimer
+    n_pairs = AP_SEQS * (AP_SEQS - 1) // 2
+
+    def run(tag):
+        t0 = time.perf_counter()
+        rc = cli.main(["--allpairs_global", str(ap_path), "--blast6out",
+                       str(WORK / ("%s.b6" % tag))] + AP_ARGS,
+                      device="cuda")
+        torch.cuda.synchronize()
+        require(rc == 0, "allpairs_global failed")
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    with allpairs_counts() as counts:
+        elapsed = run("allpairs")
+    launches = dict(cuda_lib.LAUNCHES)
+    require(not any(cuda_lib.PLAIN_CALLS.values()),
+            "a plain version ran on the allpairs path")
+    for name in ALLPAIRS_KERNELS:
+        require(launches[name] > 0,
+                "kernel %s was not launched on the allpairs path" % name)
+    require(counts.pairs == n_pairs, "the pipeline saw %d pairs"
+            % counts.pairs)
+    lines = (WORK / "allpairs.b6").read_bytes().splitlines()
+    require(len(lines) == counts.accepted,
+            "blast6 has %d lines for %d accepted pairs"
+            % (len(lines), counts.accepted))
+    for ln in lines:
+        q, t = ln.split(b"\t")[:2]
+        require(int(q[1:]) < int(t[1:]), "blast6 line with query >= target")
+    emit({"phase": "allpairs_full", "sequences": AP_SEQS,
+          "seq_len": AP_LEN, "seconds": elapsed,
+          "pairs_per_s": n_pairs / elapsed, "blast6_lines": len(lines),
+          **counts.record(), "launches": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "card": gpu})
+    phasetimer.ENABLED = True
+    phasetimer.reset()
+    traced = trace(lambda: run("allpairs_traced"))
+    phasetimer.ENABLED = False
+    by_name = traced["device_ms_by_name"]
+    k2m = sum(ms for name, ms in by_name.items()
+              if "nw_rowscan_kernel<true>" in name)
+    k5 = sum(ms for name, ms in by_name.items() if "nw_stats" in name)
+    emit(dict({"phase": "allpairs_full_traced"}, **traced,
+              nw_rowscan_mr_share=k2m / 1e3 / traced["seconds"],
+              nw_rowscan_mr_ms_per_launch=k2m / launches["nw_rowscan_mr"],
+              nw_stats_ms=k5, host_phase_s=dict(phasetimer.acc), card=gpu))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vsearch_tpu_torch.ops import cuda_lib  # noqa: F401 (package check)
+    t_start = time.perf_counter()
     gpu = card()
     WORK.mkdir(parents=True, exist_ok=True)
     phase_build(gpu)
     t0 = time.perf_counter()
     db_path, q_path = generate(WORK)
     amp_path = generate_amp(WORK / "amp100k.fasta")
+    ap_path = generate_ap(WORK / "ap2000.fasta")
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "card": gpu})
     kern = phase_kernels(gpu, db_path, q_path)
     kern.update(phase_cluster_kernels(gpu, amp_path))
+    kern.update(phase_allpairs_kernels(gpu, ap_path))
     phase_parity(gpu)
     phase_cluster_parity(gpu)
+    phase_allpairs_parity(gpu)
     by_path = {"usearch_global": phase_full(gpu, db_path, q_path),
-               "cluster_size": phase_cluster_full(gpu, amp_path)}
+               "cluster_size": phase_cluster_full(gpu, amp_path),
+               "allpairs_global": phase_allpairs_full(gpu, ap_path)}
     sources = {
         "score_dense": ("vsearch_tpu_torch/csrc/score_dense.cu",
                         "vsearch_tpu/ops/score_mxu.py:130"),
@@ -885,8 +1216,12 @@ def main() -> int:
                          "vsearch_tpu/ops/score_mxu.py:266"),
         "nw_rowscan": ("vsearch_tpu_torch/csrc/nw_rowscan.cu",
                        "vsearch_tpu/ops/nw_pallas2.py:387"),
+        "nw_rowscan_mr": ("vsearch_tpu_torch/csrc/nw_rowscan.cu",
+                          "vsearch_tpu/ops/nw_pallas2.py:387"),
         "nw_backtrack": ("vsearch_tpu_torch/csrc/nw_backtrack.cu",
                          "vsearch_tpu/ops/nw_jax.py:320"),
+        "nw_stats": ("vsearch_tpu_torch/csrc/nw_stats.cu",
+                     "vsearch_tpu/ops/allpairs_dev.py:80"),
     }
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -906,6 +1241,8 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        kern[name + "_cluster"]["max_abs_err"])
         line.append(entry)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "card": gpu})
     emit({"kernels": line})
     print(gpu)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from vsearch_tpu_torch.ops import (cuda_lib, nw_batch, nw_rowscan,
-                                   score_dense, score_grow)
+from vsearch_tpu_torch.ops import (allpairs_dev, cuda_lib, nw_batch,
+                                   nw_rowscan, score_dense, score_grow)
 from vsearch_tpu_torch.ops.nw import ScoreScheme
 from vsearch_tpu_torch.params import Parameters
 
@@ -196,6 +196,45 @@ def test_rowscan_and_backtrack_kernels_match_plain(cuda_device, case):
                                      host[4].to(cuda_device))
     torch.cuda.synchronize()
     assert _same(ops_ref, ops_got)
+
+
+@pytest.mark.parametrize("case,M,N,B", [(c, 200, 150, 300) for c in
+                                        sorted(CASES)]
+                         + [("default", 400, 400, 4096)])
+def test_rowscan_mr_and_stats_kernels_match_plain(cuda_device, case, M, N,
+                                                  B):
+    """K2m and K5 against their plain versions; 400 x 400 x 4096 is the
+    allpairs cell's batch."""
+    make_key, alphabet = CASES[case]
+    key = make_key()
+    qs, ts = _pairs(random.Random(len(case) + B), B, M, N, alphabet)
+    qmT, amT = nw_batch.encode_rowT(qs, B, M, key[1], bool(key[14]))
+    rqT = np.ascontiguousarray(nw_batch.encode_padded(qs, B, M).T)
+    t4T = np.ascontiguousarray(nw_batch.encode_padded(ts, B, N).T)
+    qlen = np.array([len(q) for q in qs], dtype=np.int32)
+    tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    host = [torch.from_numpy(a) for a in (qmT, amT, rqT, qlen, t4T, tlen)]
+    fwd = nw_rowscan.build_forward(key, with_matches=True)
+    cuda_lib.reset_launches()
+    got = fwd(*(a.to(cuda_device) for a in host))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_rowscan_mr"] == 1
+    assert cuda_lib.LAUNCHES["nw_rowscan"] == 0
+    ref = nw_rowscan.forward_plain(
+        key, nw_rowscan._scheme(key).score_min(),
+        nw_rowscan.overflow_possible(key, M, N),
+        *(a.to(cuda_device) for a in (host[0], host[1], host[3], host[4],
+                                      host[5], host[2])))
+    for r, g in zip(ref, got):
+        assert _same(r, g)
+    if case == "overflow":
+        assert bool(ref[1].any())
+    qlen_d, tlen_d = host[3].to(cuda_device), host[5].to(cuda_device)
+    st_got = allpairs_dev.stats_walk(got[2], got[3], qlen_d, tlen_d)
+    st_ref = allpairs_dev.stats_walk_plain(got[2], got[3], qlen_d, tlen_d)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_stats"] == 1
+    assert _same(st_ref, st_got)
 
 
 def test_batch_aligner_cuda_matches_cpu(cuda_device, monkeypatch):

@@ -652,6 +652,14 @@ def dispatch(params: Parameters) -> None:
             sys.stdout.write("\n\nSee the vsearch manual for option "
                              "semantics; this implementation mirrors them.\n")
         return
+    if command == "allpairs_global":
+        # reference: dispatch forces single strand + uc_allhits
+        # (vsearch.cc:613-617)
+        params.opt_strand = False
+        params.opt_uc_allhits = True
+        from .commands.allpairs import allpairs_global
+        allpairs_global(params)
+        return
     if command == "usearch_global":
         from .commands.usearch_global import usearch_global
         usearch_global(params)

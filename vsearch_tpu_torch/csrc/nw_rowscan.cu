@@ -1,8 +1,11 @@
 // K2: row-scan global-alignment (Needleman-Wunsch) forward with the
-// uint16 direction + diagonal run-length plane.
+// uint16 direction + diagonal run-length plane, and K2m: the same forward
+// that also writes the uint8 match-count plane.
 //
 // Replaces: vsearch_tpu/ops/nw_pallas2.py build_forward2's kernel (the
-// pl.pallas_call at nw_pallas2.py:387), with_matches=False.  Cell
+// pl.pallas_call at nw_pallas2.py:387), with_matches=False (K2,
+// nw_rowscan_kernel<false>) and with_matches=True (K2m,
+// nw_rowscan_kernel<true>; nw_pallas2.py:256-269).  Cell
 // semantics are bit-exact with it: the same boundaries (H0/F0, the left
 // boundary injected on the diagonal, E0), the query-right / target-right
 // gap classes, the ambiguity and n_mismatch rules on the substitution
@@ -32,6 +35,17 @@
 // fastest, so every load and store of a warp is coalesced.  It is bound by
 // latency: only B threads run, on B/32 SMs.  Spreading a pair over a warp
 // (anti-diagonals or a segmented scan of E) is the later redesign.
+//
+// K2m (the allpairs stats pipeline) takes one more input, rqT (M, B) int8,
+// the raw 4-bit query codes, and writes mr (M, N, B) uint8 at [i, j, b]:
+// the IUPAC match count ((rq & t) != 0, and under n_mismatch neither code
+// N) within the diagonal run chunk that the run-length bits of dirs name,
+// restarting with it, so MR <= RL <= RLCAP fits a byte.  The diagonal
+// predecessor's count is a register carried like rl_diag, and the previous
+// row's counts a fourth (N, B) int32 scratch row.  At the allpairs shape
+// (B=4096, M=N=400: 6.55e8 cells) its floor is the 1.97 GB of dirs and mr
+// written once (0.59 ms at 3.35 TB/s).  The template keeps K2 itself as it
+// was: every match-plane statement is under `if constexpr`.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +60,7 @@ struct Scheme {
     int n_mismatch, track, score_min;
 };
 
+template <bool WITH_MATCHES>
 __global__ void __launch_bounds__(THREADS)
 nw_rowscan_kernel(const int8_t* __restrict__ qmT,
                   const int16_t* __restrict__ amT,
@@ -57,7 +72,10 @@ nw_rowscan_kernel(const int8_t* __restrict__ qmT,
                   bool* __restrict__ over_out,
                   uint16_t* __restrict__ dirs,
                   int32_t* __restrict__ Hs, int32_t* __restrict__ Fs,
-                  int32_t* __restrict__ RLs)
+                  int32_t* __restrict__ RLs,
+                  const int8_t* __restrict__ rqT,
+                  uint8_t* __restrict__ mr,
+                  int32_t* __restrict__ MRs)
 {
     const int b = blockIdx.x * THREADS + threadIdx.x;
     if (b >= B) return;
@@ -76,6 +94,7 @@ nw_rowscan_kernel(const int8_t* __restrict__ qmT,
         Hs[idx] = h0;
         Fs[idx] = h0 - QR_t;
         RLs[idx] = 0;
+        if constexpr (WITH_MATCHES) MRs[idx] = 0;
     }
 
     int score = 0, hmin = 0, hmax = 0;
@@ -89,6 +108,12 @@ nw_rowscan_kernel(const int8_t* __restrict__ qmT,
         int rl_diag = 0;
         int E = -(s.go_t_l + (i + 1) * s.ge_t_l) - QR_q;
         uint16_t* drow = dirs + (size_t)i * N * B + b;
+        int rq = 0, mr_diag = 0;
+        uint8_t* mrow = nullptr;
+        if constexpr (WITH_MATCHES) {
+            rq = rqT[(size_t)i * B + b];
+            mrow = mr + (size_t)i * N * B + b;
+        }
 #pragma unroll 4
         for (int j = 0; j < N; ++j) {
             const size_t idx = (size_t)j * B + b;
@@ -123,6 +148,17 @@ nw_rowscan_kernel(const int8_t* __restrict__ qmT,
             drow[(size_t)j * B] = (uint16_t)((dup ? 1 : 0) | (dleft ? 2 : 0)
                                              | (dextu ? 4 : 0)
                                              | (dextl ? 8 : 0) | (rl << 4));
+            if constexpr (WITH_MATCHES) {
+                // the match plane (nw_pallas2.py:256-269): the raw codes
+                // overlap, so an IUPAC match counts where V may be 0
+                int is_m = (rq & t) != 0;
+                if (s.n_mismatch && (t == 15 || rq == 15)) is_m = 0;
+                const int m = (dup || dleft) ? 0
+                              : (rl_diag >= RLCAP ? is_m : mr_diag + is_m);
+                mrow[(size_t)j * B] = (uint8_t)m;
+                mr_diag = MRs[idx];
+                MRs[idx] = m;
+            }
             if (lastq && right_t) score += h;
             if (s.track) {
                 const int hv = (j < tl && i < ql) ? h : 0;
@@ -145,12 +181,7 @@ nw_rowscan_kernel(const int8_t* __restrict__ qmT,
 // scheme: 15 ints in ScoreScheme order (match, mismatch, go_q_l, go_t_l,
 // go_q_i, go_t_i, go_q_r, go_t_r, ge_q_l, ge_t_l, ge_q_i, ge_t_i, ge_q_r,
 // ge_t_r, n_mismatch), then track and score_min.
-extern "C" int nw_rowscan_launch(const void* qmT, const void* amT,
-                                 const void* qlen, const void* t4T,
-                                 const void* tlen, int M, int N, int B,
-                                 const int* scheme, void* score,
-                                 void* overflow, void* dirs, void* Hs,
-                                 void* Fs, void* RLs, void* stream)
+static Scheme make_scheme(const int* scheme)
 {
     Scheme s;
     s.match = scheme[0];    s.mismatch = scheme[1];
@@ -163,11 +194,42 @@ extern "C" int nw_rowscan_launch(const void* qmT, const void* amT,
     s.n_mismatch = scheme[14];
     s.track = scheme[15];
     s.score_min = scheme[16];
+    return s;
+}
+
+extern "C" int nw_rowscan_launch(const void* qmT, const void* amT,
+                                 const void* qlen, const void* t4T,
+                                 const void* tlen, int M, int N, int B,
+                                 const int* scheme, void* score,
+                                 void* overflow, void* dirs, void* Hs,
+                                 void* Fs, void* RLs, void* stream)
+{
     dim3 grid((B + THREADS - 1) / THREADS);
-    nw_rowscan_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    nw_rowscan_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const int8_t*)qmT, (const int16_t*)amT, (const int32_t*)qlen,
-        (const int8_t*)t4T, (const int32_t*)tlen, M, N, B, s,
-        (int32_t*)score, (bool*)overflow, (uint16_t*)dirs,
-        (int32_t*)Hs, (int32_t*)Fs, (int32_t*)RLs);
+        (const int8_t*)t4T, (const int32_t*)tlen, M, N, B,
+        make_scheme(scheme), (int32_t*)score, (bool*)overflow,
+        (uint16_t*)dirs, (int32_t*)Hs, (int32_t*)Fs, (int32_t*)RLs,
+        nullptr, nullptr, nullptr);
+    return (int)cudaGetLastError();
+}
+
+// K2m: as nw_rowscan_launch, plus rqT (M, B) int8 in, mr (M, N, B) uint8
+// out and a fourth (N, B) int32 scratch row MRs.
+extern "C" int nw_rowscan_mr_launch(const void* qmT, const void* amT,
+                                    const void* rqT, const void* qlen,
+                                    const void* t4T, const void* tlen,
+                                    int M, int N, int B, const int* scheme,
+                                    void* score, void* overflow, void* dirs,
+                                    void* mr, void* Hs, void* Fs, void* RLs,
+                                    void* MRs, void* stream)
+{
+    dim3 grid((B + THREADS - 1) / THREADS);
+    nw_rowscan_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)qmT, (const int16_t*)amT, (const int32_t*)qlen,
+        (const int8_t*)t4T, (const int32_t*)tlen, M, N, B,
+        make_scheme(scheme), (int32_t*)score, (bool*)overflow,
+        (uint16_t*)dirs, (int32_t*)Hs, (int32_t*)Fs, (int32_t*)RLs,
+        (const int8_t*)rqT, (uint8_t*)mr, (int32_t*)MRs);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
-"""Row-scan Needleman-Wunsch forward (kernel K2).
+"""Row-scan Needleman-Wunsch forward (kernels K2 and K2m).
 
-Counterpart of vsearch_tpu/ops/nw_pallas2.py (with_matches=False).  One
+Counterpart of vsearch_tpu/ops/nw_pallas2.py: K2 with_matches=False, K2m
+with_matches=True (the same forward, which also writes the uint8 match
+plane of the allpairs stats pipeline, ops/allpairs_dev.py).  One
 step per query row; within a row the horizontal gap state E is the
 max-plus prefix
 
@@ -14,7 +16,8 @@ dirs[i, j, b].  The score is read at (qlen-1, tlen-1); overflow is tracked
 only when overflow_possible says the reference's 16-bit engine could
 overflow for this scheme and geometry.
 
-CUDA tensors launch csrc/nw_rowscan.cu; CPU tensors take the plain
+CUDA tensors launch csrc/nw_rowscan.cu (nw_rowscan_kernel<false> for K2,
+<true> for K2m); CPU tensors take the plain
 version below, a Python loop over rows vectorised over (N, B).  Unlike the
 TPU kernel, both take any M, N and B, and the amT wire is int16 so any
 mismatch score fits.
@@ -45,6 +48,9 @@ def _lib():
         lib.nw_rowscan_launch.argtypes = [p, p, p, p, p, i, i, i, p,
                                           p, p, p, p, p, p, p]
         lib.nw_rowscan_launch.restype = i
+        lib.nw_rowscan_mr_launch.argtypes = [p, p, p, p, p, p, i, i, i, p,
+                                             p, p, p, p, p, p, p, p, p]
+        lib.nw_rowscan_mr_launch.restype = i
         _argtypes_set = True
     return lib
 
@@ -76,61 +82,105 @@ def overflow_possible(scheme_key: tuple, M: int, N: int) -> bool:
     return not (hmin_b > scheme.score_min() + 8 and hmax_b < SHRT_MAX - 8)
 
 
-def build_forward(scheme_key: tuple):
+def build_forward(scheme_key: tuple, with_matches: bool = False):
     """Forward DP for a scoring scheme (the 15-tuple scheme key).
 
     Returns forward(qmT (M, B) int8, amT (M, B) int16, qlen (B,) int32,
     t4T (N, B) int8, tlen (B,) int32) -> (score (B,) int32, overflow (B,)
     bool, dirs (M, N, B) uint16), in the encode_rowT wire of
-    ops/nw_batch.py."""
+    ops/nw_batch.py: kernel K2.
+
+    with_matches=True gives K2m, the forward of the allpairs stats
+    pipeline: forward(qmT, amT, rqT, qlen, t4T, tlen, out=None) takes the
+    raw 4-bit query codes rqT (M, B) int8 as well and also returns mr
+    (M, N, B) uint8, the IUPAC match count within each cell's diagonal run
+    chunk (nw_pallas2.py:256-269).  ``out`` may give the (dirs, mr) planes
+    to write, contiguous, so that a caller reuses them across batches."""
     key = tuple(int(v) for v in scheme_key)
-    score_min = _scheme(key).score_min()
+
+    if with_matches:
+        def forward_mr(qmT, amT, rqT, qlen, t4T, tlen, out=None):
+            return _forward(key, qmT, amT, qlen, t4T, tlen, rqT, out)
+        return forward_mr
 
     def forward(qmT, amT, qlen, t4T, tlen):
-        M, B = qmT.shape
-        N = t4T.shape[0]
-        for name, t, dt, shape in (("qmT", qmT, torch.int8, (M, B)),
-                                   ("amT", amT, torch.int16, (M, B)),
-                                   ("qlen", qlen, torch.int32, (B,)),
-                                   ("t4T", t4T, torch.int8, (N, B)),
-                                   ("tlen", tlen, torch.int32, (B,))):
-            if t.dtype != dt or tuple(t.shape) != shape:
-                raise ValueError("%s must be %s %s, got %s %s"
-                                 % (name, dt, shape, t.dtype,
-                                    tuple(t.shape)))
-            if t.device != qmT.device:
-                raise ValueError("%s lies on %s, not %s"
-                                 % (name, t.device, qmT.device))
-        track = overflow_possible(key, M, N)
-        if qmT.device.type == "cpu":
-            cuda_lib.PLAIN_CALLS["nw_rowscan"] += 1
-            return forward_plain(key, score_min, track, qmT, amT, qlen,
-                                 t4T, tlen)
-        qmT, amT, qlen, t4T, tlen = (x.contiguous() for x in
-                                     (qmT, amT, qlen, t4T, tlen))
-        dev = qmT.device
-        score = torch.empty(B, dtype=torch.int32, device=dev)
-        over = torch.empty(B, dtype=torch.bool, device=dev)
+        return _forward(key, qmT, amT, qlen, t4T, tlen)
+
+    return forward
+
+
+def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None):
+    M, B = qmT.shape
+    N = t4T.shape[0]
+    checks = [("qmT", qmT, torch.int8, (M, B)),
+              ("amT", amT, torch.int16, (M, B)),
+              ("qlen", qlen, torch.int32, (B,)),
+              ("t4T", t4T, torch.int8, (N, B)),
+              ("tlen", tlen, torch.int32, (B,))]
+    if rqT is not None:
+        checks.append(("rqT", rqT, torch.int8, (M, B)))
+    if out is not None:
+        checks += [("dirs", out[0], torch.uint16, (M, N, B)),
+                   ("mr", out[1], torch.uint8, (M, N, B))]
+    for name, t, dt, shape in checks:
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError("%s must be %s %s, got %s %s"
+                             % (name, dt, shape, t.dtype, tuple(t.shape)))
+        if t.device != qmT.device:
+            raise ValueError("%s lies on %s, not %s"
+                             % (name, t.device, qmT.device))
+    if out is not None and not all(t.is_contiguous() for t in out):
+        raise ValueError("the out planes must be contiguous")
+    kernel = "nw_rowscan" if rqT is None else "nw_rowscan_mr"
+    score_min = _scheme(key).score_min()
+    track = overflow_possible(key, M, N)
+    if qmT.device.type == "cpu":
+        cuda_lib.PLAIN_CALLS[kernel] += 1
+        return forward_plain(key, score_min, track, qmT, amT, qlen, t4T,
+                             tlen, rqT, out)
+    qmT, amT, qlen, t4T, tlen = (x.contiguous() for x in
+                                 (qmT, amT, qlen, t4T, tlen))
+    dev = qmT.device
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    over = torch.empty(B, dtype=torch.bool, device=dev)
+    params = (ctypes.c_int * 17)(*key, int(track), score_min)
+    stream = cuda_lib.stream_ptr(dev)
+    if rqT is None:
         dirs = torch.empty((M, N, B), dtype=torch.uint16, device=dev)
         scratch = torch.empty((3, N, B), dtype=torch.int32, device=dev)
-        params = (ctypes.c_int * 17)(*key, int(track), score_min)
         rc = _lib().nw_rowscan_launch(
             qmT.data_ptr(), amT.data_ptr(), qlen.data_ptr(),
             t4T.data_ptr(), tlen.data_ptr(), M, N, B, params,
             score.data_ptr(), over.data_ptr(), dirs.data_ptr(),
             scratch[0].data_ptr(), scratch[1].data_ptr(),
-            scratch[2].data_ptr(), cuda_lib.stream_ptr(dev))
-        cuda_lib.check(rc, "nw_rowscan")
-        cuda_lib.LAUNCHES["nw_rowscan"] += 1
+            scratch[2].data_ptr(), stream)
+        cuda_lib.check(rc, kernel)
+        cuda_lib.LAUNCHES[kernel] += 1
         return score, over, dirs
-
-    return forward
+    rqT = rqT.contiguous()
+    if out is None:
+        out = (torch.empty((M, N, B), dtype=torch.uint16, device=dev),
+               torch.empty((M, N, B), dtype=torch.uint8, device=dev))
+    dirs, mr = out
+    scratch = torch.empty((4, N, B), dtype=torch.int32, device=dev)
+    rc = _lib().nw_rowscan_mr_launch(
+        qmT.data_ptr(), amT.data_ptr(), rqT.data_ptr(), qlen.data_ptr(),
+        t4T.data_ptr(), tlen.data_ptr(), M, N, B, params,
+        score.data_ptr(), over.data_ptr(), dirs.data_ptr(), mr.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(),
+        scratch[2].data_ptr(), scratch[3].data_ptr(), stream)
+    cuda_lib.check(rc, kernel)
+    cuda_lib.LAUNCHES[kernel] += 1
+    return score, over, dirs, mr
 
 
 def forward_plain(key: tuple, score_min: int, track: bool, qmT, amT, qlen,
-                  t4T, tlen):
-    """Plain version of K2: a loop over query rows, vectorised over
-    (N, B), with E from torch.cummax (nw_pallas2.py:191-224)."""
+                  t4T, tlen, rqT=None, out=None):
+    """Plain version of K2 (and, given rqT, of K2m): a loop over query
+    rows, vectorised over (N, B), with E from torch.cummax
+    (nw_pallas2.py:191-224) and the match plane as nw_pallas2.py:256-269
+    computes it.  The planes are built in their wire dtypes (in ``out``
+    when it is given)."""
     (match, mismatch, go_q_l, go_t_l, go_q_i, go_t_i, go_q_r, go_t_r,
      ge_q_l, ge_t_l, ge_q_i, ge_t_i, ge_q_r, ge_t_r, n_mismatch) = key
     QR_q_i = go_q_i + ge_q_i
@@ -161,10 +211,19 @@ def forward_plain(key: tuple, score_min: int, track: bool, qmT, amT, qlen,
     H = (-(go_q_l + (jidx + 1) * ge_q_l)).expand(N, B).to(i32)
     F = H - QR_t_v
     RL = full((N, B), 0)
+    MR = full((N, B), 0)
     score = full((B,), 0)
     hmin = full((B,), 0)
     hmax = full((B,), 0)
-    dirs = torch.empty((M, N, B), dtype=i32, device=dev)
+    if out is None:
+        dirs = torch.empty((M, N, B), dtype=torch.int16, device=dev)
+        mr = (torch.empty((M, N, B), dtype=torch.uint8, device=dev)
+              if rqT is not None else None)
+    else:
+        # every cell fits 12 bits, so the int16 view holds it exactly and
+        # avoids arithmetic on uint16, which CUDA builds of torch lack
+        dirs, mr = out[0].view(torch.int16), out[1]
+    rq_all = rqT.to(i32) if rqT is not None else None
     zero_row = full((1, B), 0)
     neg_row = full((1, B), NEG)
     for i in range(M):
@@ -199,7 +258,18 @@ def forward_plain(key: tuple, score_min: int, track: bool, qmT, amT, qlen,
                          torch.where(RLs >= RLCAP, 1, RLs + 1)).to(i32)
         dirs[i] = (dup.to(i32) * DIR_UP | dleft.to(i32) * DIR_LEFT
                    | dextu.to(i32) * DIR_EXTUP | dextl.to(i32) * DIR_EXTLEFT
-                   | (RL << 4))
+                   | (RL << 4)).to(torch.int16)
+        if rq_all is not None:
+            rq = rq_all[i][None, :]
+            is_m = (rq & t4c) != 0
+            if n_mismatch:
+                is_m = is_m & ~(t_is_n | (rq == 15))
+            is_m = is_m.to(i32)
+            MRs = torch.cat((zero_row, MR[:N - 1]), dim=0)
+            MR = torch.where(leftup, 0,
+                             torch.where(RLs >= RLCAP, is_m,
+                                         MRs + is_m)).to(i32)
+            mr[i] = MR.to(torch.uint8)
         score = score + torch.where(right_t & lastq, h, 0).sum(
             dim=0, dtype=i32)
         if track:
@@ -211,6 +281,7 @@ def forward_plain(key: tuple, score_min: int, track: bool, qmT, amT, qlen,
         over = (hmin <= score_min) | (hmax >= SHRT_MAX)
     else:
         over = torch.zeros(B, dtype=torch.bool, device=dev)
-    # every cell fits 12 bits, so the int16 cast is exact; the uint16 view
-    # avoids arithmetic on uint16, which CUDA builds of torch lack
-    return score, over, dirs.to(torch.int16).view(torch.uint16)
+    dirs = dirs.view(torch.uint16)
+    if rq_all is None:
+        return score, over, dirs
+    return score, over, dirs, mr
