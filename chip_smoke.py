@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Three main paths: usearch_global (kernels K1, K2, K3), greedy
-clustering (K4, K2, K3) and allpairs_global (K2m, K5).  Phases (any
-failure ends the run with a non-zero exit and no result line):
+Four main paths: usearch_global (kernels K1, K2, K3), greedy
+clustering (K4, K2, K3), allpairs_global (K2m, K5) and usearch_global
+under --mismatch -200, a mismatch score outside int8 that routes the
+alignments to the wavefront forward and the flat backtrack (K1, K6, K7).
+Phases (any failure ends the run with a non-zero exit and no result
+line):
 
 1. build the CUDA kernels of csrc/ with nvcc (one process per source, all
    started together) and print the build seconds and ptxas's register
@@ -17,17 +20,23 @@ failure ends the run with a non-zero exit and no result line):
    least time the card could take (bound_ms): K1, K2 and K3 at the search
    shapes, K4 at the full clustering width and K2 and K3 at the cluster
    prefetch's shape, K2m and K5 on the allpairs cell's first batch
-   (W=400, B=4096);
-3. run usearch_global through the CLI on two small workloads, three
-   option sets each: on cuda as routed, on cuda with every walk round
-   forced onto the device aligner, and on cpu (the plain versions); uc and
-   blast6 must be byte-equal, and the launches of each cuda run are
-   printed, the walk rounds' K2 launches apart from the prefetch's; then
-   three clustering runs of a small family workload with the device tier
-   from the 16th centroid on, on cuda and on cpu, uc and centroids
-   byte-equal; then allpairs_global on 48 sequences with five option
-   sets, on cuda and on cpu, every output byte-equal, K2m and K5 launched
-   on the stats pipeline's four and not on --acceptall (the generic path);
+   (W=400, B=4096), K6 and K7 under --mismatch -200 on the search
+   prefetch's top-1 pairs (B=512, M=N=640) and on the cluster round's
+   top-1 pairs (B=512, M=N=512), each beside K2's time on the same pairs
+   under the default scheme;
+3. run usearch_global through the CLI on two small workloads, four
+   option sets each (the fourth with --mismatch -200): on cuda as routed,
+   on cuda with every walk round forced onto the device aligner, and on
+   cpu (the plain versions); uc and blast6 must be byte-equal, and the
+   launches of each cuda run are printed, the walk rounds' forward
+   launches apart from the prefetch's; then four clustering runs of a
+   small family workload (the fourth --cluster_fast --mismatch -200) with
+   the device tier from the 16th centroid on, on cuda and on cpu, uc and
+   centroids byte-equal; then allpairs_global on 48 sequences with five
+   option sets, on cuda and on cpu, every output byte-equal, K2m and K5
+   launched on the stats pipeline's four and not on --acceptall (the
+   generic path).  The --mismatch -200 runs must launch K6 and K7 and no
+   K2, K3 or plain version; every other run no K6 or K7;
 4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
    sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
    --maxrejects 32, wordlength 8) through the CLI, one warm-up then one
@@ -41,7 +50,9 @@ failure ends the run with a non-zero exit and no result line):
    400 nt sequences, seed 17, 1 999 000 pairs) through --allpairs_global
    --id 0.5 --blast6out, one timed run with the launch counts and the
    pipeline's pair counts read around it, then the same run under
-   torch.profiler;
+   torch.profiler.  usearch_global under --mismatch -200: the bench
+   dataset again, one warm-up, one timed run with the launch counts, one
+   traced run;
 5. the script's total seconds, and one line listing every kernel with its
    numbers and its launches on each path.
 
@@ -93,10 +104,17 @@ AP_LEN = 400
 AP_SEED = 17
 AP_ARGS = ["--id", "0.5", "--threads", "1", "--quiet"]
 
+# a mismatch score outside int8: the aligner's codes wire (K6 + K7)
+MISMATCH_200 = ["--mismatch", "-200"]
+
 # the kernels each main path must launch
 SEARCH_KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
 CLUSTER_KERNELS = ("score_ranked", "nw_rowscan", "nw_backtrack")
 ALLPAIRS_KERNELS = ("nw_rowscan_mr", "nw_stats")
+SEARCH_200_KERNELS = ("score_dense", "nw_wavefront", "nw_backtrack_flat")
+# the alignment kernels of each wire
+ROW_WIRE = ("nw_rowscan", "nw_backtrack")
+CODES_WIRE = ("nw_wavefront", "nw_backtrack_flat")
 # int32 operations of one K2m cell update (K2's and the match plane's)
 NW_MR_CELL_OPS = 25
 
@@ -139,6 +157,25 @@ def bound(nbytes: float, ops: float, ops_rate: float):
     t_bytes, t_ops = nbytes / HBM_BPS, ops / ops_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def require_wire(launches, codes: bool, what: str) -> None:
+    """A run's alignments went through one wire: K6 and K7 and neither K2
+    nor K3 under --mismatch -200 (codes), no K6 or K7 otherwise."""
+    if codes:
+        require(all(launches[k] > 0 for k in CODES_WIRE),
+                "K6 or K7 did not launch (%s)" % what)
+        require(not any(launches[k] for k in ROW_WIRE),
+                "K2 or K3 launched under --mismatch -200 (%s)" % what)
+    else:
+        require(not any(launches[k] for k in CODES_WIRE),
+                "K6 or K7 launched on the row wire (%s)" % what)
+
+
+def mismatch_200_key(key) -> tuple:
+    """The aligner's scheme key with the mismatch score of MISMATCH_200."""
+    key = tuple(int(v) for v in key)
+    return (key[0], int(MISMATCH_200[1])) + key[2:]
 
 
 def max_abs_err(a, b) -> int:
@@ -459,6 +496,12 @@ def phase_kernels(gpu, db_path, q_path):
     args = (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
             qlen, t4T, tlen)
     out.extend(nw_records(gpu, ctx.aligner._key, ctx.scheme, args, ""))
+    # K6 + K7: the same pairs on the codes wire, under --mismatch -200
+    q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, qp, M)).to(dev)
+    k2_ms = next(o["ms"] for o in out if o["kernel"] == "nw_rowscan")
+    out.extend(wavefront_records(
+        gpu, mismatch_200_key(ctx.aligner._key),
+        (q4, qlen, di.db_codes[p][:, :N].contiguous(), tlen), "", k2_ms))
     return {o["kernel"]: o for o in out}
 
 
@@ -520,6 +563,73 @@ def nw_records(gpu, key, scheme, args, tag: str):
     return out
 
 
+def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
+    """K6 and K7 on one batch of codes-wire inputs (q4, qlen, t4, tlen)
+    under a scheme whose mismatch score lies outside int8: each against its
+    plain version, timed, with its bound.  k2_ms, K2's time on the same
+    pairs under the default scheme, rides along as a note."""
+    import torch
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_wavefront
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+    q4, qlen, t4, tlen = args
+    B, M = q4.shape
+    N = t4.shape[1]
+    score_min = ScoreScheme(*key[:14], bool(key[14])).score_min()
+    fwd = nw_wavefront.build_forward(key)
+    cuda_lib.reset_launches()
+    s_k, o_k, d_k = fwd(*args)
+    s_p, o_p, d_p = nw_wavefront.forward_plain(key, score_min, *args)
+    torch.cuda.synchronize()
+    err6 = max(max_abs_err(s_k, s_p), max_abs_err(o_k, o_p),
+               max_abs_err(d_k, d_p))
+    require(err6 == 0, "K6 differs from its plain version" + tag)
+    launches = cuda_lib.LAUNCHES["nw_wavefront"]
+    del s_p, o_p, d_p
+    ms = timed(lambda: fwd(*args), 5)
+    plain_ms = timed(lambda: nw_wavefront.forward_plain(
+        key, score_min, *args), 1)
+    cells = M * N * B
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + s_k.numel() * 4 + o_k.numel() + d_k.numel())
+    bound_ms, bound_by = bound(nbytes, cells * NW_CELL_OPS, INT32_OPS)
+    out = [{"kernel": "nw_wavefront" + tag,
+            "shape": {"B": B, "M": M, "N": N, "D": d_k.shape[0],
+                      "Ms": d_k.shape[2]},
+            "mismatch": key[1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "gcups": cells / (ms * 1e-3) / 1e9,
+            "nw_rowscan_same_pairs_ms": k2_ms,
+            "overflow_pairs": int(o_k.sum()), "max_abs_err": err6,
+            "launches": launches, "card": gpu}]
+    emit(out[-1])
+
+    # K7: the flat backtrack of those alignments
+    cuda_lib.reset_launches()
+    ops_k = nw_batch.backtrack_flat(d_k, qlen, tlen)
+    ops_p = nw_batch.backtrack_flat_plain(d_k, qlen, tlen)
+    torch.cuda.synchronize()
+    err7 = max_abs_err(ops_k, ops_p)
+    require(err7 == 0, "K7 differs from its plain version" + tag)
+    launches = cuda_lib.LAUNCHES["nw_backtrack_flat"]
+    ms = timed(lambda: nw_batch.backtrack_flat(d_k, qlen, tlen), 10)
+    plain_ms = timed(lambda: nw_batch.backtrack_flat_plain(d_k, qlen, tlen),
+                     1)
+    steps = int((ops_k != 0).sum())
+    # data-dependent: one dirs byte a move on the walked paths, lengths,
+    # ops out
+    nbytes = steps + 2 * B * 4 + ops_k.numel() * 2
+    bound_ms, bound_by = bound(nbytes, steps * 10, INT32_OPS)
+    out.append({"kernel": "nw_backtrack_flat" + tag,
+                "shape": {"B": B, "M": M, "N": N, "steps": steps},
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err7, "launches": launches, "card": gpu})
+    emit(out[-1])
+    del d_k
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_cluster_kernels(gpu, amp_path):
     """K4 at the full clustering width, then K2 and K3 at the cluster
     prefetch's shape, on inputs from the amp100k cell: a growing index of
@@ -532,7 +642,7 @@ def phase_cluster_kernels(gpu, amp_path):
     from vsearch_tpu_torch import cli, device
     from vsearch_tpu_torch.core.cluster import ClusterEngine
     from vsearch_tpu_torch.ops import cuda_lib, kmer, nw_batch, score_dense
-    from vsearch_tpu_torch.ops import score_grow
+    from vsearch_tpu_torch.ops import nw_rowscan, score_grow
     from vsearch_tpu_torch.ops.nw import ScoreScheme
 
     dev = device.select("cuda")
@@ -621,6 +731,24 @@ def phase_cluster_kernels(gpu, amp_path):
     emit({"phase": "cluster_prefetch_lanes", "lanes": R,
           "live": int(live.sum()), "card": gpu})
     for rec in nw_records(gpu, key, scheme, args, "_cluster"):
+        out[rec["kernel"]] = rec
+    del args
+    torch.cuda.empty_cache()
+
+    # K6 + K7 on the round's top-1 pairs (the codes wire's prefetch,
+    # nw_batch.gather_align), beside K2 on the same pairs under the
+    # default scheme
+    p1 = idx[:, 0].to(torch.int64).clamp(0, g.codes.shape[0] - 1)
+    t4 = g.codes[p1][:, :N].contiguous()
+    tlen1 = torch.clamp(g.tlen_dev[p1], max=N).to(torch.int32)
+    k2 = nw_rowscan.build_forward(key)
+    k2_args = (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
+               qlen, t4.t().contiguous(), tlen1)
+    k2_ms = timed(lambda: k2(*k2_args), 3)
+    del k2_args
+    q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, qp, M)).to(dev)
+    for rec in wavefront_records(gpu, mismatch_200_key(key),
+                                 (q4, qlen, t4, tlen1), "_cluster", k2_ms):
         out[rec["kernel"]] = rec
     return out
 
@@ -782,19 +910,22 @@ class allpairs_counts:
 
 
 class walk_round_k2:
-    """Counts the K2 launches of the walk rounds (BatchAligner._dispatch),
-    so a run's prefetch launches are the rest."""
+    """Counts the K2 launches (count) and the K6 launches (count_k6) of the
+    walk rounds (BatchAligner._dispatch), so a run's prefetch launches are
+    the rest."""
 
     def __enter__(self):
         from vsearch_tpu_torch.ops import cuda_lib, nw_batch
-        self.count = 0
+        self.count = self.count_k6 = 0
         aligner = nw_batch.BatchAligner
         self._orig = dispatch = aligner._dispatch
 
         def counted(this, qseqs, tseqs):
             before = cuda_lib.LAUNCHES["nw_rowscan"]
+            before_k6 = cuda_lib.LAUNCHES["nw_wavefront"]
             handle = dispatch(this, qseqs, tseqs)
             self.count += cuda_lib.LAUNCHES["nw_rowscan"] - before
+            self.count_k6 += cuda_lib.LAUNCHES["nw_wavefront"] - before_k6
             return handle
 
         aligner._dispatch = counted
@@ -807,14 +938,17 @@ class walk_round_k2:
 
 def phase_parity(gpu):
     """Two small workloads (the random one of write_parity_workload and the
-    families of write_family_workload), three option sets each, three runs
+    families of write_family_workload), four option sets each, three runs
     each: on cuda as the aligner routes it (walk rounds this small go to
     the host C tier), on cuda with every walk round forced onto the device
     aligner (BatchAligner.align_pairs -> K2 + K3 at the pair-bucket
-    shapes), and on cpu (the plain versions).  All three must be
-    byte-equal.  The K2 launches of each cuda run are split into those of
-    the walk rounds (BatchAligner._dispatch) and those of the top-1
-    prefetch; the families' forced runs must have walk-round launches."""
+    shapes, K6 + K7 under --mismatch -200), and on cpu (the plain
+    versions).  All three must be byte-equal.  The forward launches of
+    each cuda run are split into those of the walk rounds
+    (BatchAligner._dispatch) and those of the top-1 prefetch; the
+    families' forced runs must have walk-round launches on either wire.
+    The --mismatch -200 runs must launch K6 and K7 and no K2, K3 or plain
+    version, the others no K6 or K7."""
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.ops import cuda_lib, nw_batch
     d = WORK / "parity"
@@ -825,13 +959,16 @@ def phase_parity(gpu):
         "ma1": ["--id", "0.8", "--maxaccepts", "1", "--maxrejects", "32"],
         "ma4_nohits": ["--id", "0.9", "--maxaccepts", "4", "--maxrejects",
                        "8", "--output_no_hits"],
-        "both": ["--id", "0.8", "--strand", "both"]}
+        "both": ["--id", "0.8", "--strand", "both"],
+        "mm200": ["--id", "0.8", "--maxaccepts", "4", "--maxrejects", "8"]
+                 + MISMATCH_200}
     aligner = nw_batch.BatchAligner
     crossover = aligner._native_cells_crossover
     try:
         for wname, (db, q) in workloads.items():
-            forced_walk_k2 = 0
+            forced_walk_k2 = forced_walk_k6 = 0
             for name, extra in option_sets.items():
+                codes = "--mismatch" in extra
                 outs = {}
                 for run in ("cuda", "cuda_forced", "cpu"):
                     aligner._native_cells_crossover = (
@@ -852,13 +989,23 @@ def phase_parity(gpu):
                     if run == "cpu":
                         continue
                     launches = dict(cuda_lib.LAUNCHES)
+                    require_wire(launches, codes, "%s, %s, %s"
+                                 % (wname, name, run))
+                    if codes:
+                        require(not any(cuda_lib.PLAIN_CALLS.values()),
+                                "a plain version ran on the card (%s, %s)"
+                                % (wname, name))
                     if run == "cuda_forced":
                         forced_walk_k2 += walk.count
+                        forced_walk_k6 += walk.count_k6
                     emit({"phase": "parity_launches", "workload": wname,
                           "options": name, "run": run, "launches": launches,
                           "nw_rowscan_walk_rounds": walk.count,
                           "nw_rowscan_prefetch":
                               launches["nw_rowscan"] - walk.count,
+                          "nw_wavefront_walk_rounds": walk.count_k6,
+                          "nw_wavefront_prefetch":
+                              launches["nw_wavefront"] - walk.count_k6,
                           "card": gpu})
                 require(outs["cuda"] == outs["cpu"],
                         "cuda and cpu outputs differ (%s, %s)"
@@ -874,6 +1021,8 @@ def phase_parity(gpu):
             if wname == "families":
                 require(forced_walk_k2 > 0,
                         "no walk round of the families reached K2")
+                require(forced_walk_k6 > 0,
+                        "no walk round of the families reached K6")
     finally:
         aligner._native_cells_crossover = crossover
 
@@ -881,11 +1030,13 @@ def phase_parity(gpu):
 def phase_cluster_parity(gpu):
     """Clustering of the small family workload (write_cluster_workload)
     with the device tier from the 16th centroid on, so it takes over after
-    the first 256-sequence round: --cluster_fast, --cluster_size and
-    --cluster_size --strand both, each on cuda and on cpu (the plain
-    versions); uc and centroids must be byte-equal, and each cuda run must
-    launch K4, K2 and K3 and no plain version.  Its K2 launches are split
-    into the walk rounds' and the prefetch's."""
+    the first 256-sequence round: --cluster_fast, --cluster_size,
+    --cluster_size --strand both and --cluster_fast --mismatch -200, each
+    on cuda and on cpu (the plain versions); uc and centroids must be
+    byte-equal, and each cuda run must launch K4, K2 and K3 (K4, K6 and K7
+    and no K2 or K3 under --mismatch -200: the top-1 prefetch) and no
+    plain version.  Its forward launches are split into the walk rounds'
+    and the prefetch's."""
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.core.cluster import ClusterEngine
     from vsearch_tpu_torch.ops import cuda_lib
@@ -895,11 +1046,16 @@ def phase_cluster_parity(gpu):
     runs = {"fast": ["--cluster_fast", str(fa), "--id", "0.97"],
             "size": ["--cluster_size", str(fa), "--id", "0.97"],
             "size_both": ["--cluster_size", str(fa), "--id", "0.9",
-                          "--strand", "both"]}
+                          "--strand", "both"],
+            "fast_mm200": ["--cluster_fast", str(fa), "--id", "0.97"]
+                          + MISMATCH_200}
     saved = ClusterEngine.DEVICE_MIN
     ClusterEngine.DEVICE_MIN = 16
     try:
         for name, args in runs.items():
+            codes = "--mismatch" in args
+            required = (("score_ranked",) + CODES_WIRE if codes
+                        else CLUSTER_KERNELS)
             outs = {}
             for run in ("cuda", "cpu"):
                 uc = d / ("%s.%s.uc" % (name, run))
@@ -914,9 +1070,10 @@ def phase_cluster_parity(gpu):
                 if run == "cpu":
                     continue
                 launches = dict(cuda_lib.LAUNCHES)
-                require(all(launches[k] > 0 for k in CLUSTER_KERNELS),
+                require(all(launches[k] > 0 for k in required),
                         "a kernel of the cluster path did not launch (%s)"
                         % name)
+                require_wire(launches, codes, name)
                 require(not any(cuda_lib.PLAIN_CALLS.values()),
                         "a plain version ran on the card (%s)" % name)
                 emit({"phase": "cluster_parity_launches", "options": name,
@@ -924,6 +1081,9 @@ def phase_cluster_parity(gpu):
                       "nw_rowscan_walk_rounds": walk.count,
                       "nw_rowscan_prefetch":
                           launches["nw_rowscan"] - walk.count,
+                      "nw_wavefront_walk_rounds": walk.count_k6,
+                      "nw_wavefront_prefetch":
+                          launches["nw_wavefront"] - walk.count_k6,
                       "card": gpu})
             require(outs["cuda"] == outs["cpu"],
                     "cuda and cpu cluster outputs differ (%s)" % name)
@@ -982,6 +1142,7 @@ def phase_allpairs_parity(gpu):
             fast = name != "acceptall"
             require(all((launches[k] > 0) == fast for k in ALLPAIRS_KERNELS),
                     "K2m/K5 launches do not fit the path (%s)" % name)
+            require_wire(launches, False, "allpairs " + name)
             emit({"phase": "allpairs_parity_launches", "options": name,
                   "launches": launches, **counts.record(), "card": gpu})
         require(outs["cuda"] == outs["cpu"],
@@ -1012,34 +1173,42 @@ def trace(run) -> dict:
             "device_ms_by_name": dict(top)}
 
 
-def phase_full(gpu, db_path, q_path):
+def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
+    """The search cell: one warm-up, one timed run with the launch counts
+    read around it, one traced run.  extra=MISMATCH_200 (tag "full_mm200")
+    is the same cell on the codes wire: K1, K6 and K7, no K2 or K3."""
     import torch
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.ops import cuda_lib
+    codes = bool(extra)
+    kernels = SEARCH_200_KERNELS if codes else SEARCH_KERNELS
 
     def run(qfile, uc):
         t0 = time.perf_counter()
         rc = cli.main(["--usearch_global", str(qfile), "--db", str(db_path),
-                       "--uc", str(uc)] + FULL_ARGS, device="cuda")
+                       "--uc", str(uc)] + FULL_ARGS + list(extra),
+                      device="cuda")
         torch.cuda.synchronize()
         require(rc == 0, "usearch_global failed")
         return time.perf_counter() - t0
 
     # the warm-up fills the caching allocators (device and pinned host)
-    run(q_path, WORK / "warm.uc")
+    run(q_path, WORK / ("%s_warm.uc" % tag))
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    elapsed = run(q_path, WORK / "full.uc")
+    elapsed = run(q_path, WORK / ("%s.uc" % tag))
     launches = dict(cuda_lib.LAUNCHES)
     require(not any(cuda_lib.PLAIN_CALLS.values()),
             "a plain version ran on the main path")
-    for name in SEARCH_KERNELS:
+    for name in kernels:
         require(launches[name] > 0,
                 "kernel %s was not launched on the search path" % name)
-    lines = (WORK / "full.uc").read_bytes().splitlines()
+    require_wire(launches, codes, tag)
+    lines = (WORK / ("%s.uc" % tag)).read_bytes().splitlines()
     require(len(lines) == N_QUERIES, "uc has %d lines" % len(lines))
     hits = sum(1 for ln in lines if ln.startswith(b"H\t"))
-    emit({"phase": "full", "queries": N_QUERIES, "db": DB_SIZE,
+    emit({"phase": tag, "options": list(extra), "queries": N_QUERIES,
+          "db": DB_SIZE,
           "seq_len": SEQ_LEN, "seconds": elapsed,
           "queries_per_s": N_QUERIES / elapsed, "hits": hits,
           "launches": launches, "chunks": -(-N_QUERIES // 512),
@@ -1052,9 +1221,9 @@ def phase_full(gpu, db_path, q_path):
     from vsearch_tpu_torch.utils import phasetimer
     phasetimer.ENABLED = True
     phasetimer.reset()
-    traced = trace(lambda: run(q_path, WORK / "traced.uc"))
+    traced = trace(lambda: run(q_path, WORK / ("%s_traced.uc" % tag)))
     phasetimer.ENABLED = False
-    emit(dict({"phase": "full_traced"}, **traced,
+    emit(dict({"phase": tag + "_traced"}, **traced,
               host_phase_s=dict(phasetimer.acc), card=gpu))
     return launches
 
@@ -1095,6 +1264,7 @@ def phase_cluster_full(gpu, amp_path):
     for name in CLUSTER_KERNELS:
         require(launches[name] > 0,
                 "kernel %s was not launched on the cluster path" % name)
+    require_wire(launches, False, "cluster_full")
     lines = (WORK / "cluster.uc").read_bytes().splitlines()
     members = sum(1 for ln in lines if ln[:2] in (b"S\t", b"H\t"))
     clusters = sum(1 for ln in lines if ln.startswith(b"S\t"))
@@ -1154,6 +1324,7 @@ def phase_allpairs_full(gpu, ap_path):
     for name in ALLPAIRS_KERNELS:
         require(launches[name] > 0,
                 "kernel %s was not launched on the allpairs path" % name)
+    require_wire(launches, False, "allpairs_full")
     require(counts.pairs == n_pairs, "the pipeline saw %d pairs"
             % counts.pairs)
     lines = (WORK / "allpairs.b6").read_bytes().splitlines()
@@ -1206,9 +1377,11 @@ def main() -> int:
     phase_parity(gpu)
     phase_cluster_parity(gpu)
     phase_allpairs_parity(gpu)
-    by_path = {"usearch_global": phase_full(gpu, db_path, q_path),
-               "cluster_size": phase_cluster_full(gpu, amp_path),
-               "allpairs_global": phase_allpairs_full(gpu, ap_path)}
+    by_path = {"usearch_global": phase_full(gpu, db_path, q_path)}
+    by_path["usearch_global_mismatch_200"] = phase_full(
+        gpu, db_path, q_path, MISMATCH_200, "full_mm200")
+    by_path["cluster_size"] = phase_cluster_full(gpu, amp_path)
+    by_path["allpairs_global"] = phase_allpairs_full(gpu, ap_path)
     sources = {
         "score_dense": ("vsearch_tpu_torch/csrc/score_dense.cu",
                         "vsearch_tpu/ops/score_mxu.py:130"),
@@ -1222,6 +1395,10 @@ def main() -> int:
                          "vsearch_tpu/ops/nw_jax.py:320"),
         "nw_stats": ("vsearch_tpu_torch/csrc/nw_stats.cu",
                      "vsearch_tpu/ops/allpairs_dev.py:80"),
+        "nw_wavefront": ("vsearch_tpu_torch/csrc/nw_wavefront.cu",
+                         "vsearch_tpu/ops/nw_pallas.py:208"),
+        "nw_backtrack_flat": ("vsearch_tpu_torch/csrc/nw_backtrack.cu",
+                              "vsearch_tpu/ops/nw_jax.py:266"),
     }
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -1233,8 +1410,8 @@ def main() -> int:
                  "launches_by_path": {p: n[name]
                                       for p, n in by_path.items()}}
         entry.update({f: kern[name][f] for f in fields})
-        # K2 and K3 run on both paths: their numbers above are at the
-        # search prefetch's shape, these at the cluster prefetch's
+        # K2, K3, K6 and K7 run on two paths: their numbers above are at
+        # the search prefetch's shape, these at the cluster prefetch's
         if name + "_cluster" in kern:
             entry["cluster_shape"] = {f: kern[name + "_cluster"][f]
                                       for f in fields}

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from vsearch_tpu_torch.ops import (allpairs_dev, cuda_lib, nw_batch,
-                                   nw_rowscan, score_dense, score_grow)
+                                   nw_rowscan, nw_wavefront, score_dense,
+                                   score_grow)
 from vsearch_tpu_torch.ops.nw import ScoreScheme
 from vsearch_tpu_torch.params import Parameters
 
@@ -237,13 +238,16 @@ def test_rowscan_mr_and_stats_kernels_match_plain(cuda_device, case, M, N,
     assert _same(st_ref, st_got)
 
 
-def test_batch_aligner_cuda_matches_cpu(cuda_device, monkeypatch):
-    """The aligner's device path gives the same results on the card (K2 and
-    K3) as on the CPU (their plain versions)."""
+@pytest.mark.parametrize("mismatch", [-4, -200])
+def test_batch_aligner_cuda_matches_cpu(cuda_device, monkeypatch, mismatch):
+    """The aligner's device path gives the same results on the card as on
+    the CPU (the plain versions): K2 and K3 on the row wire, K6 and K7
+    under a mismatch score outside int8."""
     monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
                         lambda self: 0)
     p = Parameters()
     p.apply_defaults_fixups()
+    p.opt_mismatch = mismatch
     scheme = ScoreScheme.from_params(p)
     rng = random.Random(8)
     qs, ts = _pairs(rng, 150, 300, 280, "ACGTN")
@@ -251,6 +255,56 @@ def test_batch_aligner_cuda_matches_cpu(cuda_device, monkeypatch):
     for dev in ("cpu", cuda_device):
         cuda_lib.reset_launches()
         res[str(dev)] = nw_batch.BatchAligner(scheme, dev).align_pairs(qs, ts)
-    assert cuda_lib.LAUNCHES["nw_rowscan"] == 1
-    assert cuda_lib.LAUNCHES["nw_backtrack"] == 1
+    row = mismatch == -4
+    assert cuda_lib.LAUNCHES["nw_rowscan"] == int(row)
+    assert cuda_lib.LAUNCHES["nw_backtrack"] == int(row)
+    assert cuda_lib.LAUNCHES["nw_wavefront"] == int(not row)
+    assert cuda_lib.LAUNCHES["nw_backtrack_flat"] == int(not row)
     assert res["cpu"] == res[str(cuda_device)]
+
+
+WAVEFRONT_CASES = {
+    "default": (lambda: _default_key(), "ACGT"),
+    "mismatch_200": (lambda: _default_key()[:1] + (-200,)
+                     + _default_key()[2:], "ACGTNRYSWKMBDHV"),
+    "n_mismatch": (lambda: _default_key(n_mismatch=True)[:1] + (-200,)
+                   + _default_key(n_mismatch=True)[2:], "ACGTN"),
+    "overflow": (lambda: _default_key(match=2500), "ACGT"),
+}
+
+
+@pytest.mark.parametrize("case,M,N,B,smem", [
+    (c, 200, 150, 300, True) for c in sorted(WAVEFRONT_CASES)]
+    + [("mismatch_200", 200, 150, 300, False),
+       ("mismatch_200", 1500, 700, 40, True),
+       ("default", 640, 640, 512, True)])
+def test_wavefront_and_flat_backtrack_kernels_match_plain(
+        cuda_device, monkeypatch, case, M, N, B, smem):
+    """K6 and K7 against their plain versions; smem=False moves K6's lane
+    state into its global scratch; 1500 lanes stride over a 1024-thread
+    block; 640 x 640 x 512 is the search prefetch's shape."""
+    if not smem:
+        monkeypatch.setattr(nw_wavefront, "SMEM_BYTES_MAX", 0)
+    make_key, alphabet = WAVEFRONT_CASES[case]
+    key = make_key()
+    qs, ts = _pairs(random.Random(len(case) + M), B, M, N, alphabet)
+    q4 = nw_batch.encode_padded(qs, B, M)
+    t4 = nw_batch.encode_padded(ts, B, N)
+    qlen = np.array([len(q) for q in qs], dtype=np.int32)
+    tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q4, qlen, t4, tlen)]
+    cuda_lib.reset_launches()
+    got = nw_wavefront.build_forward(key)(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_wavefront"] == 1
+    ref = nw_wavefront.forward_plain(
+        key, ScoreScheme(*key[:14], bool(key[14])).score_min(), *args)
+    for r, g in zip(ref, got):
+        assert _same(r, g)
+    if case == "overflow":
+        assert bool(ref[1].any())
+    ops_got = nw_batch.backtrack_flat(got[2], args[1], args[3])
+    ops_ref = nw_batch.backtrack_flat_plain(got[2], args[1], args[3])
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_backtrack_flat"] == 1
+    assert _same(ops_ref, ops_got)

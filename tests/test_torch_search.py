@@ -107,9 +107,12 @@ def test_port_imports_neither_jax_nor_vsearch_tpu():
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
                  if bad.search(p.read_text())]
     assert not offenders
-    # K4 (score_ranked) shares K1's source, K2m (nw_rowscan_mr) K2's
+    # K4 (score_ranked) shares K1's source, K2m (nw_rowscan_mr) K2's, K7
+    # (nw_backtrack_flat) K3's
     from vsearch_tpu_torch.ops import cuda_lib
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "nw_backtrack.cu", "nw_rowscan.cu", "nw_stats.cu", "score_dense.cu"]
+        "nw_backtrack.cu", "nw_rowscan.cu", "nw_stats.cu",
+        "nw_wavefront.cu", "score_dense.cu"]
     assert {s + ".cu" for s in cuda_lib.SOURCES.values()} == {
-        "nw_backtrack.cu", "nw_rowscan.cu", "nw_stats.cu", "score_dense.cu"}
+        "nw_backtrack.cu", "nw_rowscan.cu", "nw_stats.cu",
+        "nw_wavefront.cu", "score_dense.cu"}

@@ -1,0 +1,227 @@
+"""The wavefront route of the PyTorch port against the JAX package.
+
+Under a mismatch score outside int8 the JAX package aligns with the
+anti-diagonal wavefront (nw_pallas.build_forward) and the flat backtrack
+(nw_jax.py:266-318), and so does the port (ops/nw_wavefront.py, K6, and
+nw_batch.backtrack_flat, K7).  The port's plain versions are compared with
+the Pallas kernel, run in interpret mode (nw_pallas.pl.pallas_call is
+wrapped for the test only), and with its XLA twin,
+nw_jax._build_kernels(key, M, N, Bp=-1): score, overflow and the direction
+plane exactly, then the backtrack's ops on the same plane.  Then the CLI:
+usearch_global and cluster_fast under --mismatch -200, the port in a
+subprocess on its CPU device, byte-equal to the JAX package, with K6's and
+K7's plain versions run and K2's and K3's not.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from vsearch_tpu.ops import nw_jax, nw_pallas
+from vsearch_tpu.ops import nw as jax_nw
+from vsearch_tpu.params import Parameters
+from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_wavefront
+
+from .conftest import run_ours
+from .test_device_search_parity import _write_workload
+from .test_torch_cluster import SETUP, families  # noqa: F401 (fixture)
+from .test_torch_search import run_port
+
+
+def _default_key():
+    p = Parameters()
+    p.apply_defaults_fixups()
+    s = jax_nw.ScoreScheme.from_params(p)
+    return (s.match, s.mismatch, s.go_q_left, s.go_t_left, s.go_q_int,
+            s.go_t_int, s.go_q_right, s.go_t_right, s.ge_q_left,
+            s.ge_t_left, s.ge_q_int, s.ge_t_int, s.ge_q_right, s.ge_t_right,
+            s.n_mismatch)
+
+
+def _schemes():
+    base = _default_key()
+    return {
+        "default": base,
+        "mismatch_200": base[:1] + (-200,) + base[2:],
+        "n_mismatch": base[:1] + (-200,) + base[2:14] + (True,),
+        # every end-gap class its own open and extension penalty
+        "asym_ends": base[:2] + (3, 7) + base[4:6] + (5, 11, 1, 2)
+                     + base[10:12] + (3, 1, False),
+        # a match score that passes SHRT_MAX within 14 matches
+        "overflow": (2500,) + base[1:],
+    }
+
+
+def _inputs(seed, B, M, N):
+    """int8 codes with 0 (padding and ambiguous), 5 (ambiguous) and 15 (N)
+    mixed in, ragged lengths including 1, half the targets near copies of
+    their query."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.array([1, 2, 4, 8, 1, 2, 4, 8, 5, 15, 0], dtype=np.int8)
+    qlen = rng.integers(1, M + 1, size=B).astype(np.int32)
+    tlen = rng.integers(1, N + 1, size=B).astype(np.int32)
+    qlen[0], tlen[1] = 1, 1
+    q4 = alphabet[rng.integers(0, alphabet.size, size=(B, M))]
+    t4 = alphabet[rng.integers(0, alphabet.size, size=(B, N))]
+    for b in range(0, B, 2):
+        n = min(M, N)
+        t4[b, :n] = q4[b, :n]
+        tlen[b] = min(qlen[b] + int(rng.integers(0, 3)), N)
+        flip = rng.integers(0, n, size=2)
+        t4[b, flip] = 8
+    # pair 2: a full-length exact copy over ACGT (it overflows at match
+    # 2500)
+    q4[2] = alphabet[rng.integers(0, 4, size=M)]
+    qlen[2] = tlen[2] = min(M, N)
+    t4[2, :min(M, N)] = q4[2, :min(M, N)]
+    q4[np.arange(M)[None, :] >= qlen[:, None]] = 0
+    t4[np.arange(N)[None, :] >= tlen[:, None]] = 0
+    return q4, qlen, t4, tlen
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """nw_pallas.build_forward with its pallas_call in interpret mode."""
+    from jax.experimental.pallas import tpu as pltpu
+    monkeypatch.setattr(nw_pallas.pl, "pallas_call", functools.partial(
+        nw_pallas.pl.pallas_call, interpret=pltpu.InterpretParams()))
+    return nw_pallas.build_forward
+
+
+@pytest.mark.parametrize("case,M,N,B", [
+    ("default", 20, 28, 8), ("mismatch_200", 20, 28, 8),
+    ("n_mismatch", 20, 28, 8), ("asym_ends", 20, 28, 8),
+    ("overflow", 20, 28, 8), ("mismatch_200", 64, 64, 16)])
+def test_wavefront_matches_pallas_and_xla(pallas_interpret, case, M, N, B):
+    import jax.numpy as jnp
+    key = _schemes()[case]
+    q4, qlen, t4, tlen = _inputs(M * 7 + N + len(case), B, M, N)
+    cuda_lib.reset_launches()
+    s_t, o_t, d_t = nw_wavefront.build_forward(key)(
+        *(torch.from_numpy(a) for a in (q4, qlen, t4, tlen)))
+    assert cuda_lib.PLAIN_CALLS["nw_wavefront"] == 1
+    Ms = nw_wavefront.lane_stride(M)
+    assert d_t.dtype == torch.uint8 and tuple(d_t.shape) == \
+        (M + N - 1, B, Ms)
+    assert not d_t[:, :, M:].any()
+
+    jargs = [jnp.asarray(a) for a in (q4.astype(np.int32), qlen,
+                                      t4.astype(np.int32), tlen)]
+    s_p, o_p, d_p = pallas_interpret(key, M, N, B)(*jargs)
+    assert np.array_equal(np.asarray(s_p), s_t.numpy())
+    assert np.array_equal(np.asarray(o_p), o_t.numpy())
+    assert np.asarray(d_p).shape == tuple(d_t.shape)
+    assert np.array_equal(np.asarray(d_p), d_t.numpy())
+
+    fwd_x, bt_x = nw_jax._build_kernels(key, M, N, Bp=-1)
+    s_x, o_x, d_x = fwd_x(*jargs)
+    assert np.array_equal(np.asarray(s_x), s_t.numpy())
+    assert np.array_equal(np.asarray(o_x), o_t.numpy())
+    assert np.array_equal(np.asarray(d_x), d_t[:, :, :M].numpy())
+    if case == "overflow":
+        assert o_t.any() and not o_t.all()
+
+    # K7's plain version against the flat backtrack, on either plane
+    ops_t = nw_batch.backtrack_flat(d_t, torch.from_numpy(qlen),
+                                    torch.from_numpy(tlen))
+    assert cuda_lib.PLAIN_CALLS["nw_backtrack_flat"] == 1
+    assert ops_t.dtype == torch.int16 and tuple(ops_t.shape) == (M + N, B)
+    for d in (d_x, d_p):
+        ops_x = bt_x(d, jnp.asarray(qlen), jnp.asarray(tlen))
+        assert np.array_equal(np.asarray(ops_x), ops_t.numpy())
+    assert cuda_lib.PLAIN_CALLS["nw_rowscan"] == 0
+    assert not any(cuda_lib.LAUNCHES.values())
+
+
+def test_aligner_codes_wire_matches_oracle(monkeypatch):
+    """BatchAligner under --mismatch -200 takes the codes wire (K6 + K7)
+    for every device batch; its results equal the scalar oracle's."""
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+    key = _schemes()["n_mismatch"]
+    jax_scheme = jax_nw.ScoreScheme(*key)
+    ba = nw_batch.BatchAligner(ScoreScheme(*key), torch.device("cpu"))
+    assert not ba.row_wire
+    assert nw_batch.BatchAligner(ScoreScheme(*_schemes()["default"]),
+                                 torch.device("cpu")).row_wire
+    monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
+                        lambda self: 0)
+    rng = np.random.default_rng(5)
+    acgt = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    qs, ts = [], []
+    for _ in range(12):
+        q = acgt[rng.integers(0, 5, size=int(rng.integers(1, 70)))]
+        t = q.copy()
+        t[rng.integers(0, t.size, size=3)] = acgt[rng.integers(0, 4, 3)]
+        if rng.random() < 0.5:
+            t = np.delete(t, rng.integers(0, t.size))
+        qs.append(q.tobytes())
+        ts.append((t if t.size else q).tobytes())
+    cuda_lib.reset_launches()
+    got = ba.align_pairs(qs, ts)
+    assert cuda_lib.PLAIN_CALLS["nw_wavefront"] == 1
+    assert cuda_lib.PLAIN_CALLS["nw_backtrack_flat"] == 1
+    assert cuda_lib.PLAIN_CALLS["nw_rowscan"] == 0
+    assert cuda_lib.PLAIN_CALLS["nw_backtrack"] == 0
+    for q, t, r in zip(qs, ts, got):
+        h = jax_nw.align_pair_host(jax_scheme, q, t)
+        assert (h.score, h.cigar, h.aligned, h.matches, h.mismatches,
+                h.gaps) == (r.score, r.cigar, r.aligned, r.matches,
+                            r.mismatches, r.gaps), (q, t)
+    with pytest.raises(ValueError, match="row wire"):
+        ba.dispatch_compact([b"ACGT"], 1, None, None, np.zeros(1), 1, 1,
+                            None, None, 64, 1)
+
+
+def _assert_wavefront_route(rep):
+    assert rep["rc"] == 0
+    plain = rep["plain_calls"]
+    assert plain["nw_wavefront"] > 0 and plain["nw_backtrack_flat"] > 0, rep
+    assert plain["nw_rowscan"] == 0 and plain["nw_backtrack"] == 0, rep
+    assert not any(rep["launches"].values())
+    loaded = rep["modules"]
+    assert "vsearch_tpu_torch.ops.nw_wavefront" in loaded
+    assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
+    assert not [m for m in loaded
+                if m == "vsearch_tpu" or m.startswith("vsearch_tpu.")]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--id", "0.8", "--maxaccepts", "1", "--maxrejects", "32"],
+    ["--id", "0.9", "--maxaccepts", "4", "--maxrejects", "8",
+     "--output_no_hits"],
+    ["--id", "0.8", "--strand", "both"],
+], ids=["ma1", "ma4_nohits", "both"])
+def test_usearch_global_mismatch_200_matches_jax(tmp_path, extra):
+    db, q = _write_workload(tmp_path)
+    args = ["--usearch_global", str(q), "--db", str(db),
+            "--mismatch", "-200"] + extra
+    run_ours(args + ["--blast6out", "jax.b6", "--uc", "jax.uc"], tmp_path)
+    rep = run_port(args + ["--blast6out", "port.b6", "--uc", "port.uc",
+                           "--threads", "1", "--quiet"], tmp_path)
+    _assert_wavefront_route(rep)
+    assert rep["plain_calls"]["score_dense"] > 0
+    for name in ("uc", "b6"):
+        assert (tmp_path / ("jax." + name)).read_bytes() == \
+            (tmp_path / ("port." + name)).read_bytes(), name
+    assert (tmp_path / "port.uc").read_bytes().count(b"\n") == 64
+
+
+def test_cluster_fast_mismatch_200_matches_jax(families, tmp_path):  # noqa: F811
+    args = ["--cluster_fast", str(families), "--id", "0.97",
+            "--mismatch", "-200"]
+    outs = ("uc", "centroids")
+
+    def out_args(side):
+        return [x for o in outs for x in ("--" + o, "%s.%s" % (side, o))]
+
+    run_ours(args + out_args("jax"), tmp_path)
+    rep = run_port(args + out_args("port") + ["--threads", "1", "--quiet"],
+                   tmp_path, setup=SETUP)
+    _assert_wavefront_route(rep)
+    assert rep["plain_calls"]["score_ranked"] > 0
+    for o in outs:
+        jax_out = (tmp_path / ("jax." + o)).read_bytes()
+        assert jax_out, o
+        assert jax_out == (tmp_path / ("port." + o)).read_bytes(), o

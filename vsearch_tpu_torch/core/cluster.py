@@ -12,7 +12,8 @@ Counterpart of vsearch_tpu/core/cluster.py.  Once the centroid count
 reaches DEVICE_MIN, candidate scoring runs on the device through the
 growing k-mer index (ops/score_grow.py, kernel K4) and each round's top-K
 candidates are aligned speculatively on the device (compacted prefetch,
-kernels K2 and K3).  A failure on the device tier raises.
+kernels K2 and K3; under a mismatch score outside int8, each query's top-1
+candidate through K6 and K7).  A failure on the device tier raises.
 """
 
 from __future__ import annotations
@@ -255,7 +256,7 @@ class ClusterEngine:
                 minmatches)
             with phase("prefetch"):
                 prefetched = _PrefetchStore(self, units, pending, pref_h,
-                                            dev)
+                                            topk_h, dev)
         else:
             cand_lists = st_in["cand_lists"]
         for st, cands in zip(units, cand_lists):
@@ -330,7 +331,9 @@ class ClusterEngine:
         the un-fetched top-k output (nw_batch.compact_gather).  Top-1
         coverage is not enough for clustering: walks burn through many
         REJECTED candidates before minting a centroid, and those reject
-        alignments otherwise land on the host aligner."""
+        alignments otherwise land on the host aligner.  The compacted form
+        needs the aligner's row wire; on the codes wire each query's top-1
+        candidate is aligned instead ((score, overflow, ops) per chunk)."""
         dev = self._dev_index
         if (dev.codes is None or self.ctx.scheme.force_scalar_fallback
                 or not pending):
@@ -344,6 +347,13 @@ class ClusterEngine:
             lo += cnt
             if not any(qseqs):
                 handles.append(None)
+                continue
+            if not self.ctx.aligner.row_wire:
+                # the codes wire has no compacted form: each query's top-1
+                # candidate (vsearch_tpu/core/cluster.py:417-431)
+                handles.append(self.ctx.aligner.dispatch_indexed(
+                    qseqs, idx.shape[0], idx[:, 0], dev.codes, dev.tlen_dev,
+                    dev.codes_width))
                 continue
             meta, ops = self.ctx.aligner.dispatch_compact(
                 qseqs, idx.shape[0], vals, idx, mm,
@@ -644,29 +654,39 @@ class _PrefetchStore:
     ops beyond the cut, or beyond the lanes) go to the normal align_pairs
     path, so coverage is a pure performance knob."""
 
-    def __init__(self, engine, units, pending, pref_h, dev):
+    def __init__(self, engine, units, pending, pref_h, topk_h, dev):
         from ..ops.nw import fits_simd
         self.engine = engine
         self.units = units
         self.map: Dict[Tuple[int, int], tuple] = {}
         lo = 0
-        for (cnt, _), pf in zip(pending, pref_h):
-            if pf is not None:
+        for (cnt, _), pf, (topv, topi) in zip(pending, pref_h, topk_h):
+            if isinstance(pf, dict):
                 # compact form: meta rows q_idx/pos/score/overflow/nsteps
                 ops = pf["ops"]
                 q_idx, pos, score, over, nsteps = pf["mat"]
                 valid = (pos < 2**30) & (pos < dev.n) & (over == 0) \
                     & (q_idx < cnt) & (nsteps <= ops.shape[0])
-                for lidx in np.nonzero(valid)[0].tolist():
-                    p = int(pos[lidx])
-                    seqno = int(dev.seqnos[p])
-                    w = lo + int(q_idx[lidx])
-                    qlen = units[w].qi.qseqlen
-                    tlen = int(dev.lengths[p])
-                    if (qlen == 0 or tlen == 0 or tlen > dev.codes_width
-                            or not fits_simd(qlen, tlen)):
-                        continue
-                    self.map[(w, seqno)] = (ops, lidx, int(score[lidx]))
+                lanes = [(lidx, int(pos[lidx]), lo + int(q_idx[lidx]))
+                         for lidx in np.nonzero(valid)[0].tolist()]
+            elif pf is not None:
+                # top-1 form (vsearch_tpu/core/cluster.py:763-785): one
+                # (score, overflow, ops) triple, lane r for query r
+                score, over, ops = pf
+                valid = ((topv[:cnt, 0] >= 0) & (topi[:cnt, 0] < dev.n)
+                         & ~over[:cnt])
+                lanes = [(r, int(topi[r, 0]), lo + r)
+                         for r in np.nonzero(valid)[0].tolist()]
+            else:
+                lanes = []
+            for lidx, p, w in lanes:
+                seqno = int(dev.seqnos[p])
+                qlen = units[w].qi.qseqlen
+                tlen = int(dev.lengths[p])
+                if (qlen == 0 or tlen == 0 or tlen > dev.codes_width
+                        or not fits_simd(qlen, tlen)):
+                    continue
+                self.map[(w, seqno)] = (ops, lidx, int(score[lidx]))
             lo += cnt
 
     def take(self, w: int, t: int):

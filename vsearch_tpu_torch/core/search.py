@@ -8,7 +8,8 @@ exits, queries are processed in host batches; per batch
      the packed-bit incidence index (ops/score.py, kernel K1),
   2. exact top-K candidate selection replays the reference heap order,
   3. every query is aligned with its top-1 candidate on the device, chained
-     off the top-k output (ops/nw_batch.py, kernels K2 and K3),
+     off the top-k output (ops/nw_batch.py, kernels K2 and K3, or K6 and
+     K7 under a mismatch score outside int8),
   4. the per-query accept/reject walks advance in lockstep: each round
      collects every walk's MAXDELAYED alignment batch and aligns the union
      in one batched call (ops/nw_batch.py),

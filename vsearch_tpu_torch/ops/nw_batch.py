@@ -1,13 +1,24 @@
-"""Batched Needleman-Wunsch on the device: row-scan forward + RLE backtrack.
+"""Batched Needleman-Wunsch on the device: forward + backtrack.
 
 Counterpart of vsearch_tpu/ops/nw_jax.py for the usearch_global and
-clustering paths.  A batch of query x target pairs runs the row-scan
-forward (K2, ops/nw_rowscan.py) and the run-length backtrack (K3,
-csrc/nw_backtrack.cu) on the device; only the int16 ops wire (op | count
-<< 2, end-to-front) and the scores reach the host, where the native tier's
-assemble_batch turns them into CIGARs and statistics.  Clustering's
-speculative prefetch (compact_gather) packs the candidate pairs that pass
-minmatches into dense lanes on the device, without a host sync.
+clustering paths.  A batch of query x target pairs runs a forward and a
+backtrack on the device; only the int16 ops wire (end-to-front) and the
+scores reach the host, where the native tier's assemble_batch turns them
+into CIGARs and statistics.  The scoring scheme picks one of two wires,
+as nw_jax._build_kernels picks its kernels (nw_jax.py:388-409):
+
+- the row wire, when the mismatch score fits int8: the row-scan forward
+  (K2, ops/nw_rowscan.py) over the transposed, LUT-remapped query rows of
+  encode_rowT, then the run-length backtrack (K3, backtrack_rle), ops
+  op | count << 2;
+- the codes wire otherwise: the wavefront forward (K6,
+  ops/nw_wavefront.py) over the plain (B, M) codes of encode_padded, then
+  the flat backtrack (K7, backtrack_flat), one plain op code per move.
+
+Clustering's speculative prefetch (compact_gather, row wire only) packs
+the candidate pairs that pass minmatches into dense lanes on the device,
+without a host sync; on the codes wire it aligns each query's top-1
+candidate (dispatch_indexed), as the JAX package does.
 
 Small batches run on the host C tier instead (native
 vstpu_nw_align_batch): the crossover adapts above NATIVE_CELLS_LIMIT from
@@ -27,9 +38,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, nw_rowscan, nw_wavefront
 from .nw import SHRT_MAX, AlignmentResult, ScoreScheme
-from .nw_rowscan import build_forward
 from .score_dense import POS_SENTINEL
 from ..utils.maps import CHRMAP_4BIT
 
@@ -110,6 +120,8 @@ def _bt_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nw_backtrack_launch.argtypes = [p, p, p, i, i, i, i, p, p]
         lib.nw_backtrack_launch.restype = i
+        lib.nw_backtrack_flat_launch.argtypes = [p, p, p, i, i, i, p, p]
+        lib.nw_backtrack_flat_launch.restype = i
         _bt_argtypes_set = True
     return lib
 
@@ -183,15 +195,84 @@ def backtrack_rle_plain(dirs: torch.Tensor, qlen: torch.Tensor,
     return ops
 
 
-def gather_align(forward, qmT, amT, qlen, pos, db_codes, tlen_by_pos,
-                 N: int):
+def backtrack_flat(dirs: torch.Tensor, qlen: torch.Tensor,
+                   tlen: torch.Tensor) -> torch.Tensor:
+    """Flat backtrack over the wavefront forward's dirs (D, B, Ms) uint8,
+    cell (i, j) of pair b at [i + j, b, i].
+
+    Returns ops (S=D+1, B) int16 in end-to-front order, one plain op code
+    (1-3) per move and 0 after the walk.  CUDA tensors launch K7; CPU
+    tensors take the plain version."""
+    D, B, Ms = dirs.shape
+    if dirs.dtype != torch.uint8:
+        raise ValueError("dirs must be uint8, got %s" % dirs.dtype)
+    for name, t in (("qlen", qlen), ("tlen", tlen)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,) \
+                or t.device != dirs.device:
+            raise ValueError("%s must be int32 (%d,) on %s"
+                             % (name, B, dirs.device))
+    if dirs.device.type == "cpu":
+        cuda_lib.PLAIN_CALLS["nw_backtrack_flat"] += 1
+        return backtrack_flat_plain(dirs, qlen, tlen)
+    dirs, qlen, tlen = dirs.contiguous(), qlen.contiguous(), tlen.contiguous()
+    ops = torch.empty((D + 1, B), dtype=torch.int16, device=dirs.device)
+    rc = _bt_lib().nw_backtrack_flat_launch(
+        dirs.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), D, B, Ms,
+        ops.data_ptr(), cuda_lib.stream_ptr(dirs.device))
+    cuda_lib.check(rc, "nw_backtrack_flat")
+    cuda_lib.LAUNCHES["nw_backtrack_flat"] += 1
+    return ops
+
+
+def backtrack_flat_plain(dirs: torch.Tensor, qlen: torch.Tensor,
+                         tlen: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: one vectorised move over all lanes per step
+    (nw_jax.py:288-317), drain moves included."""
+    D, B, Ms = dirs.shape
+    dev = dirs.device
+    flat = dirs.reshape(-1)
+    brange = torch.arange(B, dtype=torch.int64, device=dev) * Ms
+    i = qlen.to(torch.int64) - 1
+    j = tlen.to(torch.int64) - 1
+    prev = torch.zeros(B, dtype=torch.int64, device=dev)
+    ops = torch.zeros((D + 1, B), dtype=torch.int16, device=dev)
+    for t in range(D + 1):
+        active = (i >= 0) | (j >= 0)
+        if not bool(active.any()):
+            break
+        both = (i >= 0) & (j >= 0)
+        idx = ((i + j).clamp(0, D - 1) * (B * Ms) + brange
+               + i.clamp(0, Ms - 1))
+        w = flat[idx].to(torch.int64)
+        op_main = torch.where(
+            (prev == OP_I) & ((w & 8) != 0), OP_I,
+            torch.where((prev == OP_D) & ((w & 4) != 0), OP_D,
+                        torch.where((w & 2) != 0, OP_I,
+                                    torch.where((w & 1) != 0, OP_D, OP_M))))
+        op = torch.where(both, op_main,
+                         torch.where(active, torch.where(i >= 0, OP_D, OP_I),
+                                     OP_NONE))
+        ops[t] = op.to(torch.int16)
+        i = i - ((op == OP_D) | (op == OP_M)).to(torch.int64)
+        j = j - ((op == OP_I) | (op == OP_M)).to(torch.int64)
+        prev = torch.where(active, op, prev)
+    return ops
+
+
+def gather_align(forward, qside, qlen, pos, db_codes, tlen_by_pos, N: int,
+                 row_wire: bool = True):
     """Forward + backtrack over pairs whose targets live on the device:
     target rows are gathered by index position, so a dispatch uploads only
-    the query side (nw_jax._gather_align_kernel, row-wire branch)."""
+    the query side (nw_jax._gather_align_kernel).  qside is (qmT, amT) on
+    the row wire (targets transposed for K2, then K3) and q4 on the codes
+    wire (targets as gathered, db_codes[p][:, :N], for K6, then K7)."""
     p = pos.to(torch.int64).clamp(0, db_codes.shape[0] - 1)
-    t4T = db_codes[p][:, :N].t().contiguous()
+    t4 = db_codes[p][:, :N]
     tlen = torch.clamp(tlen_by_pos[p], max=N).to(torch.int32)
-    score, overflow, dirs = forward(qmT, amT, qlen, t4T, tlen)
+    if not row_wire:
+        score, overflow, dirs = forward(qside, qlen, t4.contiguous(), tlen)
+        return score, overflow, backtrack_flat(dirs, qlen, tlen)
+    score, overflow, dirs = forward(*qside, qlen, t4.t().contiguous(), tlen)
     return score, overflow, backtrack_rle(dirs, qlen, tlen)
 
 
@@ -242,7 +323,7 @@ def compact_gather(forward, qmT, amT, qlens, vals, idx, mm, K: int, R: int,
     pos = idx[:, :K].reshape(-1)[q_idx * K + c_idx]
     pos = torch.where(live, pos, 0)
     ql = torch.where(live, qlens[q_idx], 1)
-    score, over, ops = gather_align(forward, qmT[:, q_idx], amT[:, q_idx],
+    score, over, ops = gather_align(forward, (qmT[:, q_idx], amT[:, q_idx]),
                                     ql, pos, db_codes, tlen_by_pos, N)
     nsteps = (ops != 0).sum(dim=0, dtype=torch.int32)
     meta = torch.stack([q_idx.to(torch.int32),
@@ -262,10 +343,11 @@ class BatchAligner:
     # crossover adapts above it from measured device-call overhead and
     # host cell rate (see align_pairs)
     NATIVE_CELLS_LIMIT = 8_000_000
-    # cells/s of the device forward: K2 as measured on an H100 80GB HBM3
-    # at a 700 W power limit, B=512, M=N=640 (2.1e8 cells in 89.2 ms,
-    # chip_smoke.py phase 2)
-    DEVICE_RATE = 2.35e9
+    # cells/s of each wire's device forward, as measured on an H100 80GB
+    # HBM3 at a 700 W power limit, B=512, M=N=640 (chip_smoke.py phase 2):
+    # K2 2.1e8 cells in 89.2 ms; K6 2.1e8 cells in 2.409 ms
+    ROW_WIRE_RATE = 2.35e9
+    CODES_WIRE_RATE = 8.70e10
 
     # adaptive host/device routing state, process-wide: EMA of the device
     # call's fixed cost and of the host C tier's measured cell rate
@@ -280,14 +362,23 @@ class BatchAligner:
                      scheme.go_q_right, scheme.go_t_right, scheme.ge_q_left,
                      scheme.ge_t_left, scheme.ge_q_int, scheme.ge_t_int,
                      scheme.ge_q_right, scheme.ge_t_right, scheme.n_mismatch)
-        self._forward = build_forward(self._key)
+        # the wire, once per scheme (nw_jax.py:393-394): the JAX package
+        # takes the row scan only when the mismatch score fits its int8
+        # wire, and the port keeps that ladder (its own K2 takes int16)
+        self.row_wire = -128 <= scheme.mismatch <= 127
+        if self.row_wire:
+            self._forward = nw_rowscan.build_forward(self._key)
+            self.device_rate = self.ROW_WIRE_RATE
+        else:
+            self._forward = nw_wavefront.build_forward(self._key)
+            self.device_rate = self.CODES_WIRE_RATE
 
     def _native_cells_crossover(self) -> float:
         """Batch size (DP cells) above which the device dispatch beats the
         host C tier: solve cells/host_rate > overhead + cells/device_rate
         with the measured EMAs.  A host at least as fast per cell as the
         device keeps every batch."""
-        inv = 1.0 / self._native_rate_ema - 1.0 / self.DEVICE_RATE
+        inv = 1.0 / self._native_rate_ema - 1.0 / self.device_rate
         if inv <= 0:
             return float("inf")
         return max(self.NATIVE_CELLS_LIMIT, self._dev_overhead_ema / inv)
@@ -321,7 +412,7 @@ class BatchAligner:
         # cap the sample so one slow first call (kernel build) doesn't
         # poison the estimate
         dt = time.perf_counter() - t0
-        overhead = min(max(dt - cells / self.DEVICE_RATE, 1e-4), 0.5)
+        overhead = min(max(dt - cells / self.device_rate, 1e-4), 0.5)
         BatchAligner._dev_overhead_ema = (
             0.7 * BatchAligner._dev_overhead_ema + 0.3 * overhead)
         return out
@@ -355,11 +446,14 @@ class BatchAligner:
         for i, s in enumerate(qseqs):
             qlens[i] = max(len(s), 1)
         M = _bucket(max(len(s) for s in qseqs))
-        qmT, amT = encode_rowT(qseqs, rows, M, self.scheme.mismatch,
-                               self.scheme.n_mismatch)
-        return gather_align(self._forward, self._upload(qmT),
-                            self._upload(amT), self._upload(qlens), pos,
-                            db_codes, tlen_by_pos, N)
+        if self.row_wire:
+            qmT, amT = encode_rowT(qseqs, rows, M, self.scheme.mismatch,
+                                   self.scheme.n_mismatch)
+            qside = (self._upload(qmT), self._upload(amT))
+        else:
+            qside = self._upload(encode_padded(qseqs, rows, M))
+        return gather_align(self._forward, qside, self._upload(qlens), pos,
+                            db_codes, tlen_by_pos, N, self.row_wire)
 
     def dispatch_compact(self, qseqs: Sequence[bytes], qp: int,
                          vals: torch.Tensor, idx: torch.Tensor,
@@ -369,7 +463,10 @@ class BatchAligner:
         """Compacted speculative alignment of the top-K candidates that
         pass minmatches, packed into R device lanes computed on the device
         from the un-fetched top-k output (compact_gather).  Only the query
-        codes and mm are uploaded."""
+        codes and mm are uploaded.  Row wire only: the ops cut at
+        PREFETCH_OPS_CAP rows assumes run-length ops (nw_jax.py:601-603)."""
+        if not self.row_wire:
+            raise ValueError("the compacted prefetch needs the row wire")
         qlens = np.ones(qp, dtype=np.int32)
         for i, s in enumerate(qseqs):
             qlens[i] = max(len(s), 1)
@@ -399,11 +496,16 @@ class BatchAligner:
         qlens_p[:B] = qlens
         tlens_p = np.ones(Bp, dtype=np.int32)
         tlens_p[:B] = tlens
+        qlen_d = self._upload(qlens_p)
+        tlen_d = self._upload(tlens_p)
+        if not self.row_wire:
+            score, overflow, dirs = self._forward(
+                self._upload(encode_padded(qseqs, Bp, M)), qlen_d,
+                self._upload(encode_padded(tseqs, Bp, N)), tlen_d)
+            return score, overflow, backtrack_flat(dirs, qlen_d, tlen_d)
         qmT, amT = encode_rowT(qseqs, Bp, M, self.scheme.mismatch,
                                self.scheme.n_mismatch)
         t4T = np.ascontiguousarray(encode_padded(tseqs, Bp, N).T)
-        qlen_d = self._upload(qlens_p)
-        tlen_d = self._upload(tlens_p)
         score, overflow, dirs = self._forward(
             self._upload(qmT), self._upload(amT), qlen_d,
             self._upload(t4T), tlen_d)
