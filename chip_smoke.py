@@ -18,8 +18,9 @@ line):
    counts and integer DP), and time kernel, plain version, one PyTorch
    library call computing the same function where there is one, and the
    least time the card could take (bound_ms): K1, K2 and K3 at the search
-   shapes, K4 at the full clustering width and K2 and K3 at the cluster
-   prefetch's shape, K2m and K5 on the allpairs cell's first batch
+   shapes and K2 and K3 at a walk round's (the first 128 of those pairs,
+   BatchAligner.PAIR_BUCKETS[0]), K4 at the full clustering width and K2
+   and K3 at the cluster prefetch's shape, K2m and K5 on the allpairs cell's first batch
    (W=400, B=4096), K6 and K7 under --mismatch -200 on the search
    prefetch's top-1 pairs (B=512, M=N=640) and on the cluster round's
    top-1 pairs (B=512, M=N=512), each beside K2's time on the same pairs
@@ -52,7 +53,10 @@ line):
    pipeline's pair counts read around it, then the same run under
    torch.profiler.  usearch_global under --mismatch -200: the bench
    dataset again, one warm-up, one timed run with the launch counts, one
-   traced run;
+   traced run.  Before each full-width run the aligner's process-wide
+   routing estimates are set back to where a fresh CLI process starts, and
+   the host/device crossover (DP cells) and the walk rounds that reached
+   the device forward are printed;
 5. the script's total seconds, and one line listing every kernel with its
    numbers and its launches on each path.
 
@@ -118,6 +122,10 @@ CODES_WIRE = ("nw_wavefront", "nw_backtrack_flat")
 # int32 operations of one K2m cell update (K2's and the match plane's)
 NW_MR_CELL_OPS = 25
 
+# BatchAligner's routing estimates (device call overhead, host cell rate)
+# as a fresh process starts with them; main() reads them before any run
+ROUTER_START = None
+
 
 def card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -157,6 +165,27 @@ def bound(nbytes: float, ops: float, ops_rate: float):
     t_bytes, t_ops = nbytes / HBM_BPS, ops / ops_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def crossover(argv) -> float:
+    """The aligner's host/device crossover, in DP cells, for the scheme of
+    a command line, from its current routing estimates."""
+    import torch
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
+    scheme = ScoreScheme.from_params(cli.parse_args(argv))
+    return BatchAligner(scheme, torch.device("cuda"))._native_cells_crossover()
+
+
+def fresh_router(argv) -> float:
+    """Set the aligner's process-wide routing estimates to ROUTER_START, so
+    the next run routes as a fresh CLI process would; returns the crossover
+    that gives for argv."""
+    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
+    BatchAligner._dev_overhead_ema, BatchAligner._native_rate_ema = \
+        ROUTER_START
+    return crossover(argv)
 
 
 def require_wire(launches, codes: bool, what: str) -> None:
@@ -386,6 +415,9 @@ def phase_build(gpu):
     total = time.perf_counter() - t0
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
+            if "Compiling entry function" in line:
+                # the (mangled) kernel the following lines describe
+                print("ptxas %s: %s" % (name, line.split("'")[1]))
             if "registers" in line or "spill" in line:
                 print("ptxas %s: %s" % (name, line.strip()))
     emit({"phase": "build", "seconds": total,
@@ -496,6 +528,11 @@ def phase_kernels(gpu, db_path, q_path):
     args = (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
             qlen, t4T, tlen)
     out.extend(nw_records(gpu, ctx.aligner._key, ctx.scheme, args, ""))
+    # K2 + K3 at a walk round's shape: the smallest pair bucket of them
+    walk_b = nw_batch.BatchAligner.PAIR_BUCKETS[0]
+    out.extend(nw_records(gpu, ctx.aligner._key, ctx.scheme,
+                          tuple(a[..., :walk_b].contiguous() for a in args),
+                          "_walk"))
     # K6 + K7: the same pairs on the codes wire, under --mismatch -200
     q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, qp, M)).to(dev)
     k2_ms = next(o["ms"] for o in out if o["kernel"] == "nw_rowscan")
@@ -1183,7 +1220,11 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
     codes = bool(extra)
     kernels = SEARCH_200_KERNELS if codes else SEARCH_KERNELS
 
+    argv = ["--usearch_global", str(q_path), "--db", str(db_path), "--uc",
+            os.devnull] + FULL_ARGS + list(extra)
+
     def run(qfile, uc):
+        fresh_router(argv)
         t0 = time.perf_counter()
         rc = cli.main(["--usearch_global", str(qfile), "--db", str(db_path),
                        "--uc", str(uc)] + FULL_ARGS + list(extra),
@@ -1192,11 +1233,13 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
         require(rc == 0, "usearch_global failed")
         return time.perf_counter() - t0
 
+    start_crossover = fresh_router(argv)
     # the warm-up fills the caching allocators (device and pinned host)
     run(q_path, WORK / ("%s_warm.uc" % tag))
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    elapsed = run(q_path, WORK / ("%s.uc" % tag))
+    with walk_round_k2() as walk:
+        elapsed = run(q_path, WORK / ("%s.uc" % tag))
     launches = dict(cuda_lib.LAUNCHES)
     require(not any(cuda_lib.PLAIN_CALLS.values()),
             "a plain version ran on the main path")
@@ -1204,6 +1247,7 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
         require(launches[name] > 0,
                 "kernel %s was not launched on the search path" % name)
     require_wire(launches, codes, tag)
+    end_crossover = crossover(argv)
     lines = (WORK / ("%s.uc" % tag)).read_bytes().splitlines()
     require(len(lines) == N_QUERIES, "uc has %d lines" % len(lines))
     hits = sum(1 for ln in lines if ln.startswith(b"H\t"))
@@ -1212,6 +1256,10 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
           "seq_len": SEQ_LEN, "seconds": elapsed,
           "queries_per_s": N_QUERIES / elapsed, "hits": hits,
           "launches": launches, "chunks": -(-N_QUERIES // 512),
+          "crossover_cells_start": start_crossover,
+          "crossover_cells_end": end_crossover,
+          "nw_rowscan_walk_rounds": walk.count,
+          "nw_wavefront_walk_rounds": walk.count_k6,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "card": gpu})
 
@@ -1238,8 +1286,10 @@ def phase_cluster_full(gpu, amp_path):
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.ops import cuda_lib
     n_seqs = 4 * AMP_FAMILIES
+    argv = ["--cluster_size", str(amp_path)] + CLUSTER_ARGS
 
     def run(tag):
+        fresh_router(argv)
         t0 = time.perf_counter()
         rc = cli.main(["--cluster_size", str(amp_path), "--uc",
                        str(WORK / ("%s.uc" % tag)), "--centroids",
@@ -1249,6 +1299,7 @@ def phase_cluster_full(gpu, amp_path):
         require(rc == 0, "cluster_size failed")
         return time.perf_counter() - t0
 
+    start_crossover = fresh_router(argv)
     # host time by pipeline phase (utils/phasetimer: a clock read per span)
     from vsearch_tpu_torch.utils import phasetimer
     phasetimer.ENABLED = True
@@ -1259,6 +1310,7 @@ def phase_cluster_full(gpu, amp_path):
         elapsed = run("cluster")
     launches = dict(cuda_lib.LAUNCHES)
     host_phase_s = dict(phasetimer.acc)
+    end_crossover = crossover(argv)
     require(not any(cuda_lib.PLAIN_CALLS.values()),
             "a plain version ran on the cluster path")
     for name in CLUSTER_KERNELS:
@@ -1280,6 +1332,8 @@ def phase_cluster_full(gpu, amp_path):
           "device_rounds": launches["score_ranked"],
           "nw_rowscan_walk_rounds": walk.count,
           "nw_rowscan_prefetch": launches["nw_rowscan"] - walk.count,
+          "crossover_cells_start": start_crossover,
+          "crossover_cells_end": end_crossover,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "host_phase_s": host_phase_s, "card": gpu})
     phasetimer.reset()
@@ -1304,8 +1358,10 @@ def phase_allpairs_full(gpu, ap_path):
     from vsearch_tpu_torch.ops import cuda_lib
     from vsearch_tpu_torch.utils import phasetimer
     n_pairs = AP_SEQS * (AP_SEQS - 1) // 2
+    argv = ["--allpairs_global", str(ap_path)] + AP_ARGS
 
     def run(tag):
+        fresh_router(argv)
         t0 = time.perf_counter()
         rc = cli.main(["--allpairs_global", str(ap_path), "--blast6out",
                        str(WORK / ("%s.b6" % tag))] + AP_ARGS,
@@ -1314,11 +1370,13 @@ def phase_allpairs_full(gpu, ap_path):
         require(rc == 0, "allpairs_global failed")
         return time.perf_counter() - t0
 
+    start_crossover = fresh_router(argv)
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
-    with allpairs_counts() as counts:
+    with allpairs_counts() as counts, walk_round_k2() as walk:
         elapsed = run("allpairs")
     launches = dict(cuda_lib.LAUNCHES)
+    end_crossover = crossover(argv)
     require(not any(cuda_lib.PLAIN_CALLS.values()),
             "a plain version ran on the allpairs path")
     for name in ALLPAIRS_KERNELS:
@@ -1338,6 +1396,9 @@ def phase_allpairs_full(gpu, ap_path):
           "seq_len": AP_LEN, "seconds": elapsed,
           "pairs_per_s": n_pairs / elapsed, "blast6_lines": len(lines),
           **counts.record(), "launches": launches,
+          "nw_rowscan_walk_rounds": walk.count,
+          "crossover_cells_start": start_crossover,
+          "crossover_cells_end": end_crossover,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "card": gpu})
     phasetimer.ENABLED = True
@@ -1346,7 +1407,7 @@ def phase_allpairs_full(gpu, ap_path):
     phasetimer.ENABLED = False
     by_name = traced["device_ms_by_name"]
     k2m = sum(ms for name, ms in by_name.items()
-              if "nw_rowscan_kernel<true>" in name)
+              if "nw_rowscan_kernel<true" in name)
     k5 = sum(ms for name, ms in by_name.items() if "nw_stats" in name)
     emit(dict({"phase": "allpairs_full_traced"}, **traced,
               nw_rowscan_mr_share=k2m / 1e3 / traced["seconds"],
@@ -1361,6 +1422,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vsearch_tpu_torch.ops import cuda_lib  # noqa: F401 (package check)
+    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
+    global ROUTER_START
+    ROUTER_START = (BatchAligner._dev_overhead_ema,
+                    BatchAligner._native_rate_ema)
     t_start = time.perf_counter()
     gpu = card()
     WORK.mkdir(parents=True, exist_ok=True)
@@ -1410,13 +1475,15 @@ def main() -> int:
                  "launches_by_path": {p: n[name]
                                       for p, n in by_path.items()}}
         entry.update({f: kern[name][f] for f in fields})
-        # K2, K3, K6 and K7 run on two paths: their numbers above are at
-        # the search prefetch's shape, these at the cluster prefetch's
-        if name + "_cluster" in kern:
-            entry["cluster_shape"] = {f: kern[name + "_cluster"][f]
-                                      for f in fields}
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       kern[name + "_cluster"]["max_abs_err"])
+        # K2, K3, K6 and K7 run at more than one shape: their numbers above
+        # are at the search prefetch's, these at the cluster prefetch's and
+        # (K2, K3) a walk round's
+        for shape in ("cluster", "walk"):
+            if name + "_" + shape in kern:
+                other = kern[name + "_" + shape]
+                entry[shape + "_shape"] = {f: other[f] for f in fields}
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           other["max_abs_err"])
         line.append(entry)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "card": gpu})

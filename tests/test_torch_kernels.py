@@ -170,45 +170,100 @@ CASES = {
     "iupac": (lambda: _default_key(), "ACGTNRYSWKMBDHV"),
     "n_mismatch": (lambda: _default_key(n_mismatch=True), "ACGTN"),
     "overflow": (lambda: _default_key(match=2500), "ACGT"),
+    # identical and near-identical pairs as long as the plane: their
+    # diagonal runs pass RLCAP and restart
+    "identity": (lambda: _default_key(), "ACGT"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_rowscan_and_backtrack_kernels_match_plain(cuda_device, case):
-    make_key, alphabet = CASES[case]
-    key = make_key()
-    M, N, B = 200, 150, 300
-    qs, ts = _pairs(random.Random(len(case)), B, M, N, alphabet)
+def _identity_pairs(rng, B, M, N):
+    qs, ts = [], []
+    for _ in range(B):
+        q = [rng.choice("ACGT") for _ in range(min(M, N) - rng.randint(0, 40))]
+        t = list(q)
+        for _ in range(rng.randint(0, 3)):
+            t[rng.randrange(len(t))] = rng.choice("ACGT")
+        qs.append("".join(q).encode())
+        ts.append("".join(t).encode())
+    return qs, ts
+
+
+def _case_pairs(case, B, M, N):
+    rng = random.Random(len(case) + M + B)
+    if case == "identity":
+        return _identity_pairs(rng, B, M, N)
+    return _pairs(rng, B, M, N, CASES[case][1])
+
+
+def _run_wraps(dirs, mr=None) -> int:
+    """Cells whose diagonal run restarts after RLCAP (run length 1 after a
+    predecessor at RLCAP), in the pair that has most; with mr, the match
+    count must restart with it."""
+    rl = (dirs.view(torch.int16).to(torch.int32) & 0xFFFF) >> 4
+    wrap = (rl[1:, 1:] == 1) & (rl[:-1, :-1] == nw_rowscan.RLCAP)
+    if mr is not None:
+        m = mr.to(torch.int32)
+        assert bool((m[1:, 1:][wrap] <= 1).all())
+        assert bool((m[:-1, :-1][wrap] > 1).all())
+    return int(wrap.sum(dim=(0, 1)).max())
+
+
+# (case, M, N, B): the four schemes; sizes off every multiple of 32 and of
+# a block's pairs; the search prefetch (640 x 640 x 512), the cluster
+# prefetch (512 x 512 x 2048) and a walk round (640 x 640 x 128); runs
+# that pass RLCAP twice in 600 nt
+ROWSCAN_SHAPES = ([(c, 200, 150, 300) for c in sorted(CASES)
+                   if c != "identity"]
+                  + [("default", 1, 1, 1), ("default", 33, 47, 17),
+                     ("iupac", 33, 47, 17), ("default", 640, 640, 512),
+                     ("default", 512, 512, 2048), ("default", 640, 640, 128),
+                     ("identity", 640, 640, 64)])
+
+
+@pytest.mark.parametrize("case,M,N,B", ROWSCAN_SHAPES)
+def test_rowscan_and_backtrack_kernels_match_plain(cuda_device, case, M, N,
+                                                   B):
+    """K2 and K3 against their plain versions, run on the same card."""
+    key = CASES[case][0]()
+    qs, ts = _case_pairs(case, B, M, N)
     qmT, amT = nw_batch.encode_rowT(qs, B, M, key[1], bool(key[14]))
     t4T = np.ascontiguousarray(nw_batch.encode_padded(ts, B, N).T)
     qlen = np.array([len(q) for q in qs], dtype=np.int32)
     tlen = np.array([len(t) for t in ts], dtype=np.int32)
-    host = [torch.from_numpy(a) for a in (qmT, amT, qlen, t4T, tlen)]
-    fwd = nw_rowscan.build_forward(key)
-    ref = fwd(*host)
-    got = fwd(*(a.to(cuda_device) for a in host))
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (qmT, amT, qlen, t4T, tlen)]
+    cuda_lib.reset_launches()
+    got = nw_rowscan.build_forward(key)(*args)
     torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_rowscan"] == 1
+    ref = nw_rowscan.forward_plain(
+        key, nw_rowscan._scheme(key).score_min(),
+        nw_rowscan.overflow_possible(key, M, N), *args)
     for r, g in zip(ref, got):
         assert _same(r, g)
     if case == "overflow":
         assert bool(ref[1].any())
-    ops_ref = nw_batch.backtrack_rle(ref[2], host[2], host[4])
-    ops_got = nw_batch.backtrack_rle(got[2], host[2].to(cuda_device),
-                                     host[4].to(cuda_device))
+    if case == "identity":
+        assert _run_wraps(got[2]) >= 2
+    ops_ref = nw_batch.backtrack_rle_plain(ref[2], args[2], args[4])
+    ops_got = nw_batch.backtrack_rle(got[2], args[2], args[4])
     torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_backtrack"] == 1
     assert _same(ops_ref, ops_got)
 
 
 @pytest.mark.parametrize("case,M,N,B", [(c, 200, 150, 300) for c in
-                                        sorted(CASES)]
-                         + [("default", 400, 400, 4096)])
+                                        sorted(CASES) if c != "identity"]
+                         + [("default", 400, 400, 4096),
+                            ("default", 1, 1, 1), ("default", 33, 47, 17),
+                            ("identity", 400, 400, 64)])
 def test_rowscan_mr_and_stats_kernels_match_plain(cuda_device, case, M, N,
                                                   B):
     """K2m and K5 against their plain versions; 400 x 400 x 4096 is the
-    allpairs cell's batch."""
-    make_key, alphabet = CASES[case]
-    key = make_key()
-    qs, ts = _pairs(random.Random(len(case) + B), B, M, N, alphabet)
+    allpairs cell's batch, and 400 nt identical pairs restart their runs
+    and match counts after RLCAP."""
+    key = CASES[case][0]()
+    qs, ts = _case_pairs(case, B, M, N)
     qmT, amT = nw_batch.encode_rowT(qs, B, M, key[1], bool(key[14]))
     rqT = np.ascontiguousarray(nw_batch.encode_padded(qs, B, M).T)
     t4T = np.ascontiguousarray(nw_batch.encode_padded(ts, B, N).T)
@@ -230,6 +285,9 @@ def test_rowscan_mr_and_stats_kernels_match_plain(cuda_device, case, M, N,
         assert _same(r, g)
     if case == "overflow":
         assert bool(ref[1].any())
+    if case == "identity":
+        assert _run_wraps(got[2], got[3]) >= 1
+        assert int((got[3] == nw_rowscan.RLCAP).sum()) > 0
     qlen_d, tlen_d = host[3].to(cuda_device), host[5].to(cuda_device)
     st_got = allpairs_dev.stats_walk(got[2], got[3], qlen_d, tlen_d)
     st_ref = allpairs_dev.stats_walk_plain(got[2], got[3], qlen_d, tlen_d)

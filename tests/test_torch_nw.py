@@ -116,8 +116,22 @@ def random_seq(rng, n, alphabet="ACGT"):
 
 def _pairs_like_test_nw(case):
     rng = random.Random({"seed1": 1, "seed2": 2, "seed3": 3,
-                         "ambiguous": 7, "n_mismatch": 11}[case])
+                         "ambiguous": 7, "n_mismatch": 11,
+                         "long_identity": 13}[case])
     pairs = []
+    if case == "long_identity":
+        # diagonal runs past RLCAP (255): the run length restarts on each
+        # path, with a substitution or an indel in some; at most 384 nt,
+        # one length bucket, keeps the plain forward's planes small
+        for n, edits in ((384, 0), (380, 2), (350, 1), (300, 0), (330, 1)):
+            q = random_seq(rng, n)
+            t = bytearray(q)
+            for _ in range(edits):
+                t[rng.randrange(n)] = ord(rng.choice("ACGT"))
+            pairs.append((q, bytes(t)))
+        q = random_seq(rng, 370)
+        pairs.append((q, q[:180] + q[181:]))
+        return pairs
     if case in ("ambiguous", "n_mismatch"):
         for _ in range(8):
             pairs.append((random_seq(rng, rng.randint(5, 60), "ACGTNRYSWKM"),
@@ -131,9 +145,20 @@ def _pairs_like_test_nw(case):
     return pairs
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the plain versions' many small tensor ops:
+    beside other test processes on the same cores, a thread team per op
+    turns seconds into minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("case", ["seed1", "seed2", "seed3", "ambiguous",
-                                  "n_mismatch"])
-def test_align_pairs_matches_oracle(monkeypatch, case):
+                                  "n_mismatch", "long_identity"])
+def test_align_pairs_matches_oracle(monkeypatch, one_thread, case):
     p = Parameters()
     p.apply_defaults_fixups()
     p.opt_n_mismatch = case == "n_mismatch"
@@ -154,4 +179,21 @@ def test_align_pairs_matches_oracle(monkeypatch, case):
         assert (h.score, h.cigar, h.aligned, h.matches, h.mismatches,
                 h.gaps) == (r.score, r.cigar, r.aligned, r.matches,
                             r.mismatches, r.gaps), (q, t)
+    if case == "long_identity":
+        # the first pair is identical: on its diagonal the run length and
+        # the match count reach RLCAP at (254, 254) and restart at 1
+        q = pairs[0][0]
+        n = len(q)
+        qmT, amT, qlen, t4T, tlen = _wire(_key(jax_scheme), [q], [q], n, n)
+        rqT = np.ascontiguousarray(nw_batch.encode_padded([q], 1, n).T)
+        _, _, dirs, mr = nw_rowscan.build_forward(
+            _key(jax_scheme), with_matches=True)(
+            *(torch.from_numpy(a) for a in (qmT, amT, rqT, qlen, t4T, tlen)))
+        diag = torch.arange(n)
+        rl = (dirs.view(torch.int16).to(torch.int32) >> 4)[diag, diag, 0]
+        m = mr.to(torch.int32)[diag, diag, 0]
+        wrap = nw_rowscan.RLCAP
+        assert rl[wrap - 1] == m[wrap - 1] == wrap
+        assert rl[wrap] == m[wrap] == 1
+        assert rl[-1] == m[-1] == n - wrap
 

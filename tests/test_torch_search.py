@@ -38,6 +38,10 @@ print(json.dumps({"rc": rc, "launches": cuda_lib.LAUNCHES,
 def run_port(args, cwd, device="cpu", setup=""):
     env = dict(os.environ)
     env["VSEARCH_TPU_TORCH_DEVICE"] = device
+    # one intra-op thread: beside the other test workers on the same
+    # cores, a thread team for each of the plain versions' small tensor
+    # ops makes a run take minutes instead of seconds
+    env["OMP_NUM_THREADS"] = "1"
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     proc = subprocess.run([sys.executable, "-c", _DRIVER % setup] + args,

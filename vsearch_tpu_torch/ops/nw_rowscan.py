@@ -17,7 +17,9 @@ only when overflow_possible says the reference's 16-bit engine could
 overflow for this scheme and geometry.
 
 CUDA tensors launch csrc/nw_rowscan.cu (nw_rowscan_kernel<false> for K2,
-<true> for K2m); CPU tensors take the plain
+<true> for K2m): one warp a pair, its lanes on the rows of a 32-row band,
+up to 32 pairs a block writing the planes through a shared stage, and a
+(B, N) int4 scratch for each band's last row.  CPU tensors take the plain
 version below, a Python loop over rows vectorised over (N, B).  Unlike the
 TPU kernel, both take any M, N and B, and the amT wire is int16 so any
 mismatch score fits.
@@ -46,10 +48,10 @@ def _lib():
     if not _argtypes_set:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nw_rowscan_launch.argtypes = [p, p, p, p, p, i, i, i, p,
-                                          p, p, p, p, p, p, p]
+                                          p, p, p, p, p]
         lib.nw_rowscan_launch.restype = i
         lib.nw_rowscan_mr_launch.argtypes = [p, p, p, p, p, p, i, i, i, p,
-                                             p, p, p, p, p, p, p, p, p]
+                                             p, p, p, p, p, p]
         lib.nw_rowscan_mr_launch.restype = i
         _argtypes_set = True
     return lib
@@ -145,15 +147,16 @@ def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None):
     over = torch.empty(B, dtype=torch.bool, device=dev)
     params = (ctypes.c_int * 17)(*key, int(track), score_min)
     stream = cuda_lib.stream_ptr(dev)
+    # each band's last row (H, F, run length | match count | target code),
+    # 16 bytes a column of a pair; the kernel needs no initial value
+    rows = torch.empty((B, N, 4), dtype=torch.int32, device=dev)
     if rqT is None:
         dirs = torch.empty((M, N, B), dtype=torch.uint16, device=dev)
-        scratch = torch.empty((3, N, B), dtype=torch.int32, device=dev)
         rc = _lib().nw_rowscan_launch(
             qmT.data_ptr(), amT.data_ptr(), qlen.data_ptr(),
             t4T.data_ptr(), tlen.data_ptr(), M, N, B, params,
             score.data_ptr(), over.data_ptr(), dirs.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            scratch[2].data_ptr(), stream)
+            rows.data_ptr(), stream)
         cuda_lib.check(rc, kernel)
         cuda_lib.LAUNCHES[kernel] += 1
         return score, over, dirs
@@ -162,13 +165,11 @@ def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None):
         out = (torch.empty((M, N, B), dtype=torch.uint16, device=dev),
                torch.empty((M, N, B), dtype=torch.uint8, device=dev))
     dirs, mr = out
-    scratch = torch.empty((4, N, B), dtype=torch.int32, device=dev)
     rc = _lib().nw_rowscan_mr_launch(
         qmT.data_ptr(), amT.data_ptr(), rqT.data_ptr(), qlen.data_ptr(),
         t4T.data_ptr(), tlen.data_ptr(), M, N, B, params,
         score.data_ptr(), over.data_ptr(), dirs.data_ptr(), mr.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(),
-        scratch[2].data_ptr(), scratch[3].data_ptr(), stream)
+        rows.data_ptr(), stream)
     cuda_lib.check(rc, kernel)
     cuda_lib.LAUNCHES[kernel] += 1
     return score, over, dirs, mr
