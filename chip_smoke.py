@@ -19,9 +19,11 @@ line):
    library call computing the same function where there is one, and the
    least time the card could take (bound_ms): K1, K2 and K3 at the search
    shapes and K2 and K3 at a walk round's (the first 128 of those pairs,
-   BatchAligner.PAIR_BUCKETS[0]), K4 at the full clustering width and K2
-   and K3 at the cluster prefetch's shape, K2m and K5 on the allpairs cell's first batch
-   (W=400, B=4096), K6 and K7 under --mismatch -200 on the search
+   BatchAligner.PAIR_BUCKETS[0]), K4 at the full clustering width (the
+   index's capacity, 3200 words) and at the filled prefix its top-k
+   scans (896 words at the cell's 25 000 centroids), K2 and K3 at the
+   cluster prefetch's shape, K2m and K5 on the allpairs cell's first
+   batch (W=400, B=4096), K6 and K7 under --mismatch -200 on the search
    prefetch's top-1 pairs (B=512, M=N=640) and on the cluster round's
    top-1 pairs (B=512, M=N=512), each beside K2's time on the same pairs
    under the default scheme;
@@ -46,7 +48,8 @@ line):
    by kernel and its idle share.  Clustering: tools/bench_scale.py's
    amp100k cell (25 000 families x 4 members x 400 nt, seed 17) through
    --cluster_size --id 0.97 --sizein --sizeout, one timed run with the
-   launch counts read around it, then the same run under torch.profiler.
+   launch counts read around it, then the same run under torch.profiler
+   with K4's device ms per launch and the mean words a launch scans.
    Allpairs: tools/bench_scale.py's allpairs_2000 cell (2000 random
    400 nt sequences, seed 17, 1 999 000 pairs) through --allpairs_global
    --id 0.5 --blast6out, one timed run with the launch counts and the
@@ -452,40 +455,51 @@ def int_mm_yardstick(Kbits, bits, counts, name: str) -> float:
     return library_ms
 
 
-def phase_kernels(gpu, db_path, q_path):
-    """Each kernel against its plain version at the main path's shapes,
-    with the main path's own inputs: the first 512-query chunk of the
-    full-width run scored against its index, then aligned with its top-1
-    candidates."""
+def search_chunk(db_path, q_path):
+    """The search cell's context and its first 512-query chunk as K1 takes
+    it: (ctx, query sequences, their k-mer lists, Kbits on the card), to
+    be scored against ctx.device_index.blocks[0]."""
     import numpy as np
     import torch
     from vsearch_tpu_torch import cli, device
     from vsearch_tpu_torch.core.search import SearchContext, load_db_and_index
     from vsearch_tpu_torch.io import fastx
-    from vsearch_tpu_torch.ops import cuda_lib, kmer, nw_batch, score_dense
+    from vsearch_tpu_torch.ops import kmer, score_dense
 
-    dev = device.select("cuda")
     params = cli.parse_args(["--usearch_global", str(q_path), "--db",
                              str(db_path), "--uc", os.devnull] + FULL_ARGS)
     # fills load_db_and_index's session cache, which the full-width
     # CLI runs of phase 4 then reuse
     db, index = load_db_and_index(params, params.opt_db)
     ctx = SearchContext.build(params, db, index=index)
-    di = ctx.device_index
-    bits, words, _, n_real = di.blocks[0]
-    V = di.hashsize
     recs = []
     for rec in fastx.read_fastx(str(q_path), params):
         recs.append(rec)
         if len(recs) == 512:
             break
-    tasks = ctx.prepare_tasks(recs)
-    qseqs = [t.seqs[0] for t in tasks]
+    qseqs = [t.seqs[0] for t in ctx.prepare_tasks(recs)]
     klists = [kmer.unique_kmer_set(s, index.wordlength, params.opt_qmask)
               for s in qseqs]
-    qp = len(klists)
     Kbits = torch.from_numpy(score_dense.pack_query_bits(
-        klists, qp, V).view(np.int32)).to(dev)
+        klists, len(klists), ctx.device_index.hashsize).view(np.int32))
+    return ctx, qseqs, klists, Kbits.to(device.select("cuda"))
+
+
+def phase_kernels(gpu, db_path, q_path):
+    """Each kernel against its plain version at the main path's shapes,
+    with the main path's own inputs: the first 512-query chunk of the
+    full-width run scored against its index, then aligned with its top-1
+    candidates."""
+    import torch
+    from vsearch_tpu_torch import device
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch, score_dense
+
+    dev = device.select("cuda")
+    ctx, qseqs, klists, Kbits = search_chunk(db_path, q_path)
+    di = ctx.device_index
+    bits, words, _, n_real = di.blocks[0]
+    V = di.hashsize
+    qp = len(klists)
     out = []
 
     # K1: counts + packed key
@@ -667,20 +681,18 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
     return out
 
 
-def phase_cluster_kernels(gpu, amp_path):
-    """K4 at the full clustering width, then K2 and K3 at the cluster
-    prefetch's shape, on inputs from the amp100k cell: a growing index of
-    the first member of every family (the centroids a run ends with,
-    heap ranks a random permutation) at the capacity the run sizes, 102 400
-    positions, scored by a 512-query round of other members, whose
-    compacted top-8 candidates then fill the prefetch's 2048 lanes."""
+def cluster_round(amp_path):
+    """The clustering cell's growing index and one device round as K4
+    takes it: the first member of every amp100k family indexed (the
+    centroids a run ends with, heap ranks a random permutation, device
+    codes attached) at the capacity the run sizes, 102 400 positions, and
+    a 512-query round of other members.  Returns (params, index, query
+    sequences, their k-mer lists, Kbits on the card)."""
     import numpy as np
     import torch
     from vsearch_tpu_torch import cli, device
     from vsearch_tpu_torch.core.cluster import ClusterEngine
-    from vsearch_tpu_torch.ops import cuda_lib, kmer, nw_batch, score_dense
-    from vsearch_tpu_torch.ops import nw_rowscan, score_grow
-    from vsearch_tpu_torch.ops.nw import ScoreScheme
+    from vsearch_tpu_torch.ops import kmer, nw_batch, score_dense, score_grow
 
     dev = device.select("cuda")
     params = cli.parse_args(["--cluster_size", str(amp_path)] + CLUSTER_ARGS)
@@ -701,9 +713,31 @@ def phase_cluster_kernels(gpu, amp_path):
     pick = rng.choice(n, size=qp) * 4 + rng.integers(1, 4, size=qp)
     qseqs = [seqs[i] for i in pick.tolist()]
     klists = [kmer.unique_kmer_set(s, w, params.opt_qmask) for s in qseqs]
-    V = g.hashsize
     Kbits = torch.from_numpy(score_dense.pack_query_bits(
-        klists, qp, V).view(np.int32)).to(dev)
+        klists, qp, g.hashsize).view(np.int32)).to(dev)
+    return params, g, qseqs, klists, Kbits
+
+
+def phase_cluster_kernels(gpu, amp_path):
+    """K4 at the full clustering width and on the filled prefix, then K2
+    and K3 at the cluster prefetch's shape, on inputs from the amp100k
+    cell: a growing index of the first member of every family (the
+    centroids a run ends with, heap ranks a random permutation) at the
+    capacity the run sizes, 102 400 positions, scored by a 512-query round
+    of other members, whose compacted top-8 candidates then fill the
+    prefetch's 2048 lanes."""
+    import torch
+    from vsearch_tpu_torch import device
+    from vsearch_tpu_torch.core.cluster import ClusterEngine
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_rowscan
+    from vsearch_tpu_torch.ops import score_dense
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+
+    dev = device.select("cuda")
+    params, g, qseqs, klists, Kbits = cluster_round(amp_path)
+    n = g.n
+    qp = len(klists)
+    V = g.hashsize
     bits = g.bits[:V]
     rank = g._ranks()
     out = {}
@@ -736,6 +770,39 @@ def phase_cluster_kernels(gpu, amp_path):
         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
         "launches": launches, "card": gpu}
     emit(out["score_ranked"])
+    del got
+    torch.cuda.empty_cache()
+
+    # K4 as the cell's top-k runs it at this occupancy: on the filled
+    # prefix of whole 4096-position blocks (GrowingDeviceKmerIndex
+    # .topk_dispatch), a column prefix of the same matrix
+    used = g.scan_words()
+    bits_p, rank_p = bits[:, :used], rank[:used * 32]
+    cuda_lib.reset_launches()
+    got = score_dense.ranked_keys(Kbits, bits_p, rank_p)
+    ref = score_dense.ranked_keys_plain(Kbits, bits_p, rank_p)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    require(err == 0, "K4 differs from its plain version on the prefix")
+    require(int((got >= 0).sum()) == qp * n, "K4 keys of empty positions")
+    del ref
+    launches = cuda_lib.LAUNCHES["score_ranked"]
+    ms = timed(lambda: score_dense.ranked_keys(Kbits, bits_p, rank_p), 20)
+    plain_ms = timed(lambda: score_dense.ranked_keys_plain(
+        Kbits, bits_p, rank_p), 1)
+    counts = score_dense.counts_or_keys(Kbits, bits_p, 0, False)
+    library_ms = int_mm_yardstick(Kbits, bits_p, counts, "K4 (prefix)")
+    del counts
+    k4_bytes = (Kbits.numel() + V * used + rank_p.numel() + got.numel()) * 4
+    bound_ms, bound_by = bound(k4_bytes, 2 * nnz * used * 32, INT8_TC_OPS)
+    out["score_ranked_prefix"] = {
+        "kernel": "score_ranked_prefix",
+        "shape": {"qp": qp, "V": V, "words": used, "row_stride": g.words,
+                  "occupied": n, "ids": nnz},
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+        "launches": launches, "card": gpu}
+    emit(out["score_ranked_prefix"])
     del got
     torch.cuda.empty_cache()
 
@@ -973,6 +1040,29 @@ class walk_round_k2:
         nw_batch.BatchAligner._dispatch = self._orig
 
 
+class ranked_words:
+    """Counts K4's launches (launches) and the packed words they scan
+    (words), read at score_dense.ranked_keys."""
+
+    def __enter__(self):
+        from vsearch_tpu_torch.ops import score_dense
+        self.launches = self.words = 0
+        self._orig = ranked_keys = score_dense.ranked_keys
+
+        def counted(Kbits, bits, rank):
+            if bits.is_cuda:
+                self.launches += 1
+                self.words += bits.shape[1]
+            return ranked_keys(Kbits, bits, rank)
+
+        score_dense.ranked_keys = counted
+        return self
+
+    def __exit__(self, *exc):
+        from vsearch_tpu_torch.ops import score_dense
+        score_dense.ranked_keys = self._orig
+
+
 def phase_parity(gpu):
     """Two small workloads (the random one of write_parity_workload and the
     families of write_family_workload), four option sets each, three runs
@@ -1188,9 +1278,11 @@ def phase_allpairs_parity(gpu):
               "bytes": [len(b) for b in outs["cuda"]], "card": gpu})
 
 
-def trace(run) -> dict:
+def trace(run, match=()) -> dict:
     """run() once under torch.profiler: its wall seconds, the device's busy
-    time, its idle share and the device time of the top kernels by name."""
+    time, its idle share, the device time of the top kernels by name and
+    (device_ms_matching) the device time of every kernel whose name holds
+    one of the strings of match."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1207,7 +1299,9 @@ def trace(run) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"seconds": seconds, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / seconds,
-            "device_ms_by_name": dict(top)}
+            "device_ms_by_name": dict(top),
+            "device_ms_matching": {m: sum(ms for name, ms in by_name.items()
+                                          if m in name) for m in match}}
 
 
 def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
@@ -1337,12 +1431,19 @@ def phase_cluster_full(gpu, amp_path):
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "host_phase_s": host_phase_s, "card": gpu})
     phasetimer.reset()
-    traced = trace(lambda: run("cluster_traced"))
+    k4_name = "score_kernel<2>"              # EPI_RANK_KEY
+    with ranked_words() as scanned:
+        traced = trace(lambda: run("cluster_traced"),
+                       match=("nw_rowscan", k4_name))
     phasetimer.ENABLED = False
-    k2 = sum(ms for name, ms in traced["device_ms_by_name"].items()
-             if "nw_rowscan" in name)
+    k2 = traced["device_ms_matching"]["nw_rowscan"]
+    k4 = traced["device_ms_matching"][k4_name]
     emit(dict({"phase": "cluster_full_traced"}, **traced,
               nw_rowscan_share=k2 / 1e3 / traced["seconds"],
+              score_ranked_ms=k4, score_ranked_launches=scanned.launches,
+              score_ranked_ms_per_launch=k4 / max(1, scanned.launches),
+              score_ranked_mean_words=scanned.words
+              / max(1, scanned.launches),
               host_phase_s=dict(phasetimer.acc), card=gpu))
     return launches
 
@@ -1477,8 +1578,9 @@ def main() -> int:
         entry.update({f: kern[name][f] for f in fields})
         # K2, K3, K6 and K7 run at more than one shape: their numbers above
         # are at the search prefetch's, these at the cluster prefetch's and
-        # (K2, K3) a walk round's
-        for shape in ("cluster", "walk"):
+        # (K2, K3) a walk round's; K4's above at the index's full capacity,
+        # its prefix shape at the filled blocks the cell's top-k scans
+        for shape in ("cluster", "walk", "prefix"):
             if name + "_" + shape in kern:
                 other = kern[name + "_" + shape]
                 entry[shape + "_shape"] = {f: other[f] for f in fields}

@@ -100,6 +100,38 @@ def test_growing_index_matches_jax():
     assert b_t.topk_batch(queries, 9, [1] * len(queries)) == got
 
 
+def test_growing_index_prefix_scan_matches_jax(monkeypatch):
+    """Occupancy one past a 4096-position block: the port's top-k scans
+    the two filled blocks of its 20480-position capacity (256 of 640
+    words) and its candidate lists equal the JAX package's, which scans
+    the whole capacity, and the host lexsort oracle."""
+    from vsearch_tpu_torch.ops import score_dense
+    rng = np.random.default_rng(7)
+    w = 6
+    entries = _entries(rng, 4097, w)
+    queries = [np.unique(rng.integers(0, 1 << (2 * w), size=100,
+                                      dtype=np.uint32)) for _ in range(6)]
+    g_j = jax_grow.GrowingDeviceKmerIndex(w, capacity=20480)
+    g_t = torch_grow.GrowingDeviceKmerIndex(w, capacity=20480, device=CPU)
+    for g in (g_j, g_t):
+        assert g.append_round(entries[:4096])
+        assert g.append_round(entries[4096:])
+    _same_state(g_j, g_t)
+    assert g_t.words == 640 and g_t.scan_words() == 256
+    scanned = []
+    ranked_keys = score_dense.ranked_keys
+
+    def spy(Kbits, bits, rank):
+        scanned.append((tuple(bits.shape), bits.stride(), rank.numel()))
+        return ranked_keys(Kbits, bits, rank)
+
+    monkeypatch.setattr(score_dense, "ranked_keys", spy)
+    got = g_t.topk_batch(queries, 12, [1] * len(queries))
+    assert scanned == [((g_t.hashsize, 256), (640, 1), 256 * 32)]
+    assert got == g_j.topk_batch(queries, 12, [1] * len(queries))
+    assert got == _host_oracle(entries, queries, 12)
+
+
 def test_growing_index_capacity_and_gates():
     """append_round refuses to outgrow the capacity (the engine then
     rebuilds), capacity rounds to whole 4096-position K4 blocks, and

@@ -99,6 +99,74 @@ def test_score_ranked_kernel_matches_plain(cuda_device, wordlength, words,
         assert _same(r, g)
 
 
+@pytest.mark.parametrize("n_ids", [0, 1, 15, 16, 17, 255, 256, 2047, 2048,
+                                   4097])
+def test_score_kernels_exact_at_id_counts(cuda_device, n_ids):
+    """K1 (both epilogues) and K4 on queries of exactly n_ids k-mers: the
+    adder groups' edges (16 +- 1), 2^8, K4's MAX_COUNT, and K1's id windows
+    (2048, and more than two windows on the counts-only path).  The bits
+    are a 130-word column prefix (off the 128-word tile) of a 200-word
+    matrix, with one all-ones and one all-zero column so that a count
+    reaches n_ids exactly; qp = 7."""
+    rng = np.random.default_rng(n_ids)
+    V, words, full, qp = 1 << 16, 130, 200, 7
+    bits = rng.integers(0, 2 ** 32, size=(V, full), dtype=np.uint32)
+    bits[:, 0] = 0xFFFFFFFF
+    bits[:, 129] = 0
+    qlists = [np.sort(rng.choice(V, size=n_ids, replace=False))
+              .astype(np.uint32) for _ in range(qp)]
+    Kb = torch.from_numpy(score_dense.pack_query_bits(qlists, qp, V)
+                          .view(np.int32))
+    bt = torch.from_numpy(bits.view(np.int32))
+    bt_dev = bt.to(cuda_device)
+    rank = np.full(words * 32, score_dense.RANK_MAX, dtype=np.int32)
+    occ = rng.choice(words * 32, size=words * 16, replace=False)
+    rank[occ] = rng.permutation(occ.size)
+    rank_t = torch.from_numpy(rank)
+    n_real = words * 32 - 3
+    for pack in (True, False):
+        ref = score_dense.counts_or_keys(Kb, bt[:, :words], n_real, pack)
+        got = score_dense.counts_or_keys(Kb.to(cuda_device),
+                                         bt_dev[:, :words], n_real, pack)
+        assert _same(ref, got)
+    assert int(ref.max()) == n_ids
+    if n_ids <= score_dense.MAX_COUNT:
+        ref = score_dense.ranked_keys(Kb, bt[:, :words], rank_t)
+        got = score_dense.ranked_keys(Kb.to(cuda_device), bt_dev[:, :words],
+                                      rank_t.to(cuda_device))
+        assert _same(ref, got)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 8192])
+def test_growing_topk_prefix_cuda_matches_cpu(cuda_device, n):
+    """topk_dispatch scans the filled 4096-position blocks only (K4 on a
+    column prefix of the index), at n on both sides of a block edge and at
+    capacity; the top-k equals the CPU run's."""
+    rng = np.random.default_rng(n)
+    w = 6
+    kmer_lists = [np.unique(rng.integers(0, 1 << (2 * w), size=60,
+                                         dtype=np.uint32)) for _ in range(n)]
+    lengths = rng.integers(80, 120, size=n).tolist()
+    seqnos = rng.permutation(10 * n)[:n].tolist()
+    queries = [np.unique(rng.integers(0, 1 << (2 * w), size=100,
+                                      dtype=np.uint32)) for _ in range(40)]
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        g = score_grow.GrowingDeviceKmerIndex.build(
+            w, kmer_lists, lengths, seqnos, capacity=8192, device=dev)
+        assert g.scan_words() == -(-n // 4096) * 128
+        before = cuda_lib.LAUNCHES["score_ranked"]
+        q, pending = g.topk_dispatch(queries, 30)
+        (nq, (vals, idx)), = pending
+        assert vals.shape == (40, min(30, n))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_lib.LAUNCHES["score_ranked"] == before + 1
+        out.append((vals.cpu(), idx.cpu()))
+    for r, g in zip(*out):
+        assert _same(r, g)
+
+
 def test_growing_index_and_compaction_cuda_match_cpu(cuda_device):
     """The growing index's scatter appends, ranks and K4 top-k, and the
     compacted prefetch (lane list, K2, K3) give the same results on the

@@ -197,3 +197,32 @@ def test_ranked_keys_plain_matches_numpy(fixture):
         Kb, torch.from_numpy(bits[:V]), torch.from_numpy(rank))
     assert (v[:, -10:] == -1).all() and (i[:, -10:] == 2 ** 30).all()
     assert (v[:, :-10] >= 0).all()
+
+
+@pytest.mark.parametrize("used", [1, 37, 128])
+def test_column_prefix_matches_full_width(used):
+    """ranked_keys and counts_or_keys on a column prefix of a wider bit
+    matrix (a strided view, as the growing index scans its filled
+    positions) equal the full-width outputs cut to that prefix."""
+    rng = np.random.default_rng(used)
+    full, qp = 160, 16
+    bits = torch.from_numpy(rng.integers(0, 2 ** 32, size=(V + 1, full),
+                                         dtype=np.uint32).view(np.int32))
+    qlists = [np.sort(rng.choice(V, size=int(rng.integers(0, V)),
+                                 replace=False)).astype(np.uint32)
+              for _ in range(qp)]
+    Kb = torch.from_numpy(score_dense.pack_query_bits(qlists, qp, V)
+                          .view(np.int32))
+    rank = np.full(full * 32, score_dense.RANK_MAX, dtype=np.int32)
+    occ = rng.choice(full * 32, size=full * 16, replace=False)
+    rank[occ] = rng.permutation(occ.size)
+    rank = torch.from_numpy(rank)
+    prefix = bits[:V, :used]
+    assert prefix.stride() == (full, 1)
+    cut = used * 32
+    assert torch.equal(score_dense.ranked_keys(Kb, prefix, rank[:cut]),
+                       score_dense.ranked_keys(Kb, bits[:V], rank)[:, :cut])
+    for pack in (True, False):
+        assert torch.equal(
+            score_dense.counts_or_keys(Kb, prefix, cut - 5, pack),
+            score_dense.counts_or_keys(Kb, bits[:V], cut - 5, pack)[:, :cut])

@@ -7,11 +7,12 @@ against a packed-bit index block are
     counts(Q, pos) = sum over the query's k-mer ids of bit pos of bits[id]
 
 computed by the hand-written CUDA kernels of csrc/score_dense.cu (one
-thread per packed word, summing the bits of the query's own ids -- see
-the note there) or, for tensors on the CPU, by their plain PyTorch
-versions below.  K1 folds the position key of a static index, K4 the rank
-key of the growing index (ops/score_grow.py).  Top-k selection is
-``torch.topk``, where the JAX package had lax.top_k outside its kernels.
+thread per packed word, adding the words of the query's own ids into bit
+planes with carry-save adders -- see the note there) or, for tensors on
+the CPU, by their plain PyTorch versions below.  K1 folds the position
+key of a static index, K4 the rank key of the growing index
+(ops/score_grow.py).  Top-k selection is ``torch.topk``, where the JAX
+package had lax.top_k outside its kernels.
 
 Exactness: the packed key count<<17 | (2^17-1-pos) is a strict total order
 equal to the reference min-heap's (count desc, position asc; positions are
@@ -53,9 +54,9 @@ def _lib():
     lib = cuda_lib.load("score_dense")
     if not _argtypes_set:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_dense_launch.argtypes = [p, i, i, p, i, i, i, i, p, p]
+        lib.score_dense_launch.argtypes = [p, i, i, p, i, i, i, i, i, p, p]
         lib.score_dense_launch.restype = i
-        lib.score_ranked_launch.argtypes = [p, i, i, p, i, i, p, p, p]
+        lib.score_ranked_launch.argtypes = [p, i, i, p, i, i, i, p, p, p]
         lib.score_ranked_launch.restype = i
         _argtypes_set = True
     return lib
@@ -73,7 +74,8 @@ def _as_i32(t: torch.Tensor) -> torch.Tensor:
 def _operands(Kbits: torch.Tensor, bits: torch.Tensor, *more: torch.Tensor):
     """Kbits and bits as int32, after the checks K1 and K4 share: Kbits has
     the words of V = bits rows, and off the CPU every operand lies on one
-    CUDA device, contiguous."""
+    CUDA device, contiguous except bits, whose rows need only be (a column
+    prefix of a wider matrix: the kernels take its row stride)."""
     Kbits = _as_i32(Kbits)
     bits = _as_i32(bits)
     qw = Kbits.shape[1]
@@ -86,8 +88,10 @@ def _operands(Kbits: torch.Tensor, bits: torch.Tensor, *more: torch.Tensor):
         if not (Kbits.is_cuda
                 and all(t.device == Kbits.device for t in ops)):
             raise ValueError("the operands must lie on the same CUDA device")
-        if not all(t.is_contiguous() for t in ops):
-            raise ValueError("the operands must be contiguous")
+        if not all(t.is_contiguous() for t in (Kbits,) + more) \
+                or bits.stride(1) != 1 or bits.stride(0) < bits.shape[1]:
+            raise ValueError("the operands must be contiguous, bits in its "
+                             "rows")
     return Kbits, bits
 
 
@@ -95,8 +99,8 @@ def counts_or_keys(Kbits: torch.Tensor, bits: torch.Tensor, n_real: int,
                    pack: bool) -> torch.Tensor:
     """(qp, 32*words) int32 counts in position order, or with ``pack`` the
     packed keys (-1 at positions >= n_real).  Kbits (qp, ceil(V/32)) and
-    bits (V, words) are packed uint32/int32.  CUDA tensors launch K1; CPU
-    tensors take the plain version."""
+    bits (V, words) are packed uint32/int32, bits' rows contiguous.  CUDA
+    tensors launch K1; CPU tensors take the plain version."""
     Kbits, bits = _operands(Kbits, bits)
     qp, qw = Kbits.shape
     V, words = bits.shape
@@ -106,8 +110,9 @@ def counts_or_keys(Kbits: torch.Tensor, bits: torch.Tensor, n_real: int,
     out = torch.empty((qp, words * 32), dtype=torch.int32,
                       device=Kbits.device)
     rc = _lib().score_dense_launch(
-        Kbits.data_ptr(), qp, qw, bits.data_ptr(), V, words, int(n_real),
-        int(pack), out.data_ptr(), cuda_lib.stream_ptr(Kbits.device))
+        Kbits.data_ptr(), qp, qw, bits.data_ptr(), V, words, bits.stride(0),
+        int(n_real), int(pack), out.data_ptr(),
+        cuda_lib.stream_ptr(Kbits.device))
     cuda_lib.check(rc, "score_dense")
     cuda_lib.LAUNCHES["score_dense"] += 1
     return out
@@ -142,9 +147,10 @@ def ranked_keys(Kbits: torch.Tensor, bits: torch.Tensor,
                 rank: torch.Tensor) -> torch.Tensor:
     """(qp, 32*words) int32 rank keys count<<20 | (RANK_MAX - rank[pos]),
     -1 where rank[pos] >= RANK_MAX (an empty position).  Kbits (qp,
-    ceil(V/32)) and bits (V, words) are packed uint32/int32, rank (32*words,)
-    int32 in position order.  CUDA tensors launch K4; CPU tensors take the
-    plain version."""
+    ceil(V/32)) and bits (V, words) are packed uint32/int32 (bits' rows
+    contiguous: a column prefix of a wider matrix scans those positions
+    only), rank (32*words,) int32 in position order.  CUDA tensors launch
+    K4; CPU tensors take the plain version."""
     Kbits, bits = _operands(Kbits, bits, rank)
     qp, qw = Kbits.shape
     V, words = bits.shape
@@ -157,7 +163,7 @@ def ranked_keys(Kbits: torch.Tensor, bits: torch.Tensor,
     out = torch.empty((qp, words * 32), dtype=torch.int32,
                       device=Kbits.device)
     rc = _lib().score_ranked_launch(
-        Kbits.data_ptr(), qp, qw, bits.data_ptr(), V, words,
+        Kbits.data_ptr(), qp, qw, bits.data_ptr(), V, words, bits.stride(0),
         rank.data_ptr(), out.data_ptr(), cuda_lib.stream_ptr(Kbits.device))
     cuda_lib.check(rc, "score_ranked")
     cuda_lib.LAUNCHES["score_ranked"] += 1

@@ -14,7 +14,8 @@ maintained incrementally on the host:
 which makes torch.topk's descending order exactly the reference min-heap's
 (count desc, length asc, seqno asc) total order (src/core/minheap.cpp:
 111-146) for any insertion order.  Kernel K4 (ops/score_dense.py,
-csrc/score_dense.cu) computes the counts and folds the key.
+csrc/score_dense.cu) computes the counts and folds the key, over the
+filled 4096-position blocks only (scan_words).
 
 Exactness gates: counts fit the key (supports(): a query has at most
 MAX_COUNT k-mers, else the caller scores on its host tier) and positions
@@ -192,6 +193,11 @@ class GrowingDeviceKmerIndex:
             self._rank_dirty = False
         return self._rank_dev
 
+    def scan_words(self) -> int:
+        """Packed words a top-k scans: the whole 4096-position blocks that
+        hold the n filled positions."""
+        return _round_up(self.n, 4096) // 32
+
     def supports(self, kmer_lists: List[np.ndarray]) -> bool:
         return max((kl.size for kl in kmer_lists), default=0) <= MAX_COUNT
 
@@ -203,8 +209,13 @@ class GrowingDeviceKmerIndex:
         k = min(tophits, self.n)
         if q == 0 or self.n == 0 or k == 0:
             return (q, [])
-        rank = self._ranks()
-        bits = self.bits[:self.hashsize]      # a contiguous view: no copy
+        # only the filled prefix is scanned: positions are assigned from 0
+        # in insertion order, whole K4 blocks of 4096 cover the first n,
+        # and k <= n keeps every candidate there (empty positions key to
+        # -1).  A view of bits' row prefixes: no copy.
+        used = self.scan_words()
+        rank = self._ranks()[:used * 32]
+        bits = self.bits[:self.hashsize, :used]
         pending = []
         for lo in range(0, q, self.CHUNK):
             chunk = kmer_lists[lo:lo + self.CHUNK]
@@ -212,7 +223,7 @@ class GrowingDeviceKmerIndex:
             Kbits = torch.from_numpy(pack_query_bits(
                 chunk, qp, self.hashsize).view(np.int32)).to(self.device)
             pending.append((qp, dense_topk_ranked(
-                self.hashsize, self.words, qp, k)(Kbits, bits, rank)))
+                self.hashsize, used, qp, k)(Kbits, bits, rank)))
         return (q, pending)
 
     def topk_cut(self, fetched_pending,
