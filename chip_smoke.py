@@ -19,9 +19,12 @@ line):
    library call computing the same function where there is one, and the
    least time the card could take (bound_ms): K1, K2 and K3 at the search
    shapes and K2 and K3 at a walk round's (the first 128 of those pairs,
-   BatchAligner.PAIR_BUCKETS[0]), K4 at the full clustering width (the
-   index's capacity, 3200 words) and at the filled prefix its top-k
-   scans (896 words at the cell's 25 000 centroids), K2 and K3 at the
+   BatchAligner.PAIR_BUCKETS[0]; K3 also timed right after a fresh K2
+   launch wrote its plane, ms_after_k2, as the pipeline runs it, beside
+   its entries a lane, max_steps and mean_steps), K4 at the full
+   clustering width (the index's capacity, 3200 words) and at the
+   filled prefix its top-k scans (896 words at the cell's 25 000
+   centroids), K2 and K3 at the
    cluster prefetch's shape, K2m and K5 on the allpairs cell's first
    batch (W=400, B=4096), K6 and K7 under --mismatch -200 on the search
    prefetch's top-1 pairs (B=512, M=N=640) and on the cluster round's
@@ -49,7 +52,8 @@ line):
    amp100k cell (25 000 families x 4 members x 400 nt, seed 17) through
    --cluster_size --id 0.97 --sizein --sizeout, one timed run with the
    launch counts read around it, then the same run under torch.profiler
-   with K4's device ms per launch and the mean words a launch scans.
+   with K4's device ms per launch and the mean words a launch scans, and
+   K3's device ms with the fills that zero its ops.
    Allpairs: tools/bench_scale.py's allpairs_2000 cell (2000 random
    400 nt sequences, seed 17, 1 999 000 pairs) through --allpairs_global
    --id 0.5 --blast6out, one timed run with the launch counts and the
@@ -148,10 +152,14 @@ def emit(obj) -> None:
 
 
 def timed(fn, reps: int) -> float:
-    """Milliseconds per call on the card (CUDA events, after a warm-up)."""
+    """Milliseconds per call on the card (CUDA events, after a warm-up).
+    A sleep kernel queued first (~0.1 ms a call) lets the host queue every
+    call before the first starts, so a call shorter than its own launch
+    cost on the host is timed on the card, not at the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(200_000 * reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -160,6 +168,25 @@ def timed(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_after(first, then, reps: int) -> float:
+    """Milliseconds per call of then(first()) on the card, from events
+    around then alone: then runs right after first, on its fresh output
+    (after a warm-up)."""
+    import torch
+    then(first())
+    total = 0.0
+    for _ in range(reps):
+        x = first()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        then(x)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -485,6 +512,31 @@ def search_chunk(db_path, q_path):
     return ctx, qseqs, klists, Kbits.to(device.select("cuda"))
 
 
+def search_prefetch_args(ctx, qseqs, Kbits):
+    """K2's inputs (qmT, amT, qlen, t4T, tlen) for the search prefetch of
+    a chunk: each query with its top-1 candidate of the first index block;
+    also returns the candidates' positions."""
+    import torch
+    from vsearch_tpu_torch.ops import nw_batch, score_dense
+    di = ctx.device_index
+    bits, words, _, n_real = di.blocks[0]
+    dev = Kbits.device
+    qp = len(qseqs)
+    _, top = score_dense.dense_topk(di.hashsize, words, qp, 1)(
+        Kbits, bits, n_real)
+    M = nw_batch._bucket(max(len(s) for s in qseqs))
+    N = di.db_codes_width
+    qmT, amT = nw_batch.encode_rowT(qseqs, qp, M, ctx.scheme.mismatch,
+                                    ctx.scheme.n_mismatch)
+    qlen = torch.tensor([len(s) for s in qseqs], dtype=torch.int32,
+                        device=dev)
+    p = top[:, 0].to(torch.int64).clamp(0, di.n - 1)
+    t4T = di.db_codes[p][:, :N].t().contiguous()
+    tlen = torch.clamp(di.tlen_by_pos_dev[p], max=N).to(torch.int32)
+    return (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
+            qlen, t4T, tlen), p
+
+
 def phase_kernels(gpu, db_path, q_path):
     """Each kernel against its plain version at the main path's shapes,
     with the main path's own inputs: the first 512-query chunk of the
@@ -529,18 +581,9 @@ def phase_kernels(gpu, db_path, q_path):
     emit(out[-1])
 
     # K2 + K3: each query aligned with its top-1 candidate (the prefetch)
-    _, top = score_dense.dense_topk(V, words, qp, 1)(Kbits, bits, n_real)
-    M = nw_batch._bucket(max(len(s) for s in qseqs))
-    N = di.db_codes_width
-    qmT, amT = nw_batch.encode_rowT(qseqs, qp, M, ctx.scheme.mismatch,
-                                    ctx.scheme.n_mismatch)
-    qlen = torch.tensor([len(s) for s in qseqs], dtype=torch.int32,
-                        device=dev)
-    p = top[:, 0].to(torch.int64).clamp(0, di.n - 1)
-    t4T = di.db_codes[p][:, :N].t().contiguous()
-    tlen = torch.clamp(di.tlen_by_pos_dev[p], max=N).to(torch.int32)
-    args = (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
-            qlen, t4T, tlen)
+    args, p = search_prefetch_args(ctx, qseqs, Kbits)
+    M, N = args[0].shape[0], args[3].shape[0]
+    qlen, tlen = args[2], args[4]
     out.extend(nw_records(gpu, ctx.aligner._key, ctx.scheme, args, ""))
     # K2 + K3 at a walk round's shape: the smallest pair bucket of them
     walk_b = nw_batch.BatchAligner.PAIR_BUCKETS[0]
@@ -590,7 +633,9 @@ def nw_records(gpu, key, scheme, args, tag: str):
             "launches": cuda_lib.LAUNCHES["nw_rowscan"], "card": gpu}]
     emit(out[-1])
 
-    # K3: backtrack of those alignments
+    # K3: backtrack of those alignments, timed on one plane (its walked
+    # cells stay in L2 from one launch to the next) and right after a
+    # fresh K2 launch wrote the plane, as the pipeline runs it
     cuda_lib.reset_launches()
     ops_k = nw_batch.backtrack_rle(d_k, qlen, tlen)
     ops_p = nw_batch.backtrack_rle_plain(d_k, qlen, tlen)
@@ -598,18 +643,27 @@ def nw_records(gpu, key, scheme, args, tag: str):
     err3 = max_abs_err(ops_k, ops_p)
     require(err3 == 0, "K3 differs from its plain version" + tag)
     ms = timed(lambda: nw_batch.backtrack_rle(d_k, qlen, tlen), 10)
+    launches = cuda_lib.LAUNCHES["nw_backtrack"]
+    del d_k
+    ms_after_k2 = timed_after(lambda: fwd(*args)[2],
+                              lambda d: nw_batch.backtrack_rle(d, qlen, tlen),
+                              5)
+    d_k = fwd(*args)[2]
     plain_ms = timed(lambda: nw_batch.backtrack_rle_plain(d_k, qlen, tlen),
                      1)
-    steps = int((ops_k != 0).sum())
+    lane_steps = (ops_k != 0).sum(dim=0)
+    steps = int(lane_steps.sum())
     # data-dependent: the dirs cells on the walked paths, lengths, ops out
     k3_bytes = steps * 2 + 2 * B * 4 + ops_k.numel() * 2
     bound_ms, bound_by = bound(k3_bytes, steps * 10, INT32_OPS)
     out.append({"kernel": "nw_backtrack" + tag,
                 "shape": {"B": B, "M": M, "N": N, "steps": steps},
-                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "max_abs_err": err3,
-                "launches": cuda_lib.LAUNCHES["nw_backtrack"], "card": gpu})
+                "ms": ms, "ms_after_k2": ms_after_k2, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": err3,
+                "max_steps": int(lane_steps.max()),
+                "mean_steps": steps / B,
+                "launches": launches, "card": gpu})
     emit(out[-1])
     return out
 
@@ -718,6 +772,49 @@ def cluster_round(amp_path):
     return params, g, qseqs, klists, Kbits
 
 
+def cluster_prefetch_args(params, g, qseqs, klists, Kbits):
+    """K2's inputs (qmT, amT, qlen, t4T, tlen) for the cluster prefetch of
+    a round, as compact_gather builds them: the round's top-8 candidates
+    that pass minmatches packed into the prefetch's lanes, queries gathered
+    by lane and targets by index position.  Also returns the live-lane
+    mask, the top-k positions (qp, 8) and the round's own (qmT, amT, qlen)
+    on the card."""
+    import torch
+    from vsearch_tpu_torch.core.cluster import ClusterEngine
+    from vsearch_tpu_torch.ops import nw_batch, score_dense
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+
+    dev = Kbits.device
+    qp = len(klists)
+    K = ClusterEngine.PREFETCH_K
+    R = ClusterEngine.PREFETCH_LANES
+    vals, idx = score_dense.dense_topk_ranked(g.hashsize, g.words, qp, K)(
+        Kbits, g.bits[:g.hashsize], g._ranks())
+    mm = torch.tensor([min(params.opt_minwordmatches, k.size)
+                       for k in klists], dtype=torch.int32, device=dev)
+    lanes = nw_batch.compact_lanes(vals, idx, mm, K, R, g.n)
+    live = lanes < qp * K
+    lane_c = torch.where(live, lanes, 0).long()
+    q_idx = lane_c % qp
+    pos = idx.reshape(-1)[q_idx * K + lane_c // qp].long()
+    pos = torch.where(live, pos, 0)
+    M = nw_batch._bucket(max(len(s) for s in qseqs))
+    N = g.codes_width
+    scheme = ScoreScheme.from_params(params)
+    qmT, amT = nw_batch.encode_rowT(qseqs, qp, M, scheme.mismatch,
+                                    scheme.n_mismatch)
+    qlen = torch.tensor([len(s) for s in qseqs], dtype=torch.int32,
+                        device=dev)
+    queries = (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
+               qlen)
+    args = (queries[0][:, q_idx].contiguous(),
+            queries[1][:, q_idx].contiguous(),
+            torch.where(live, qlen[q_idx], 1),
+            g.codes[pos][:, :N].t().contiguous(),
+            torch.clamp(g.tlen_dev[pos], max=N).to(torch.int32))
+    return args, live, idx, queries
+
+
 def phase_cluster_kernels(gpu, amp_path):
     """K4 at the full clustering width and on the filled prefix, then K2
     and K3 at the cluster prefetch's shape, on inputs from the amp100k
@@ -807,31 +904,12 @@ def phase_cluster_kernels(gpu, amp_path):
     torch.cuda.empty_cache()
 
     # the prefetch's forward inputs: compact_gather's lanes and gathers
-    K = ClusterEngine.PREFETCH_K
     R = ClusterEngine.PREFETCH_LANES
-    vals, idx = score_dense.dense_topk_ranked(V, g.words, qp, K)(
-        Kbits, bits, rank)
-    mm = torch.tensor([min(params.opt_minwordmatches, k.size)
-                       for k in klists], dtype=torch.int32, device=dev)
-    lanes = nw_batch.compact_lanes(vals, idx, mm, K, R, g.n)
-    live = lanes < qp * K
-    lane_c = torch.where(live, lanes, 0).long()
-    q_idx = lane_c % qp
-    pos = idx.reshape(-1)[q_idx * K + lane_c // qp].long()
-    pos = torch.where(live, pos, 0)
-    M = nw_batch._bucket(max(len(s) for s in qseqs))
-    N = g.codes_width
+    args, live, idx, (qmT, amT, qlen) = cluster_prefetch_args(
+        params, g, qseqs, klists, Kbits)
+    M, N = qmT.shape[0], g.codes_width
     scheme = ScoreScheme.from_params(params)
     key = nw_batch.BatchAligner(scheme, dev)._key
-    qmT, amT = nw_batch.encode_rowT(qseqs, qp, M, scheme.mismatch,
-                                    scheme.n_mismatch)
-    qlen = torch.tensor([len(s) for s in qseqs], dtype=torch.int32,
-                        device=dev)
-    args = (torch.from_numpy(qmT).to(dev)[:, q_idx].contiguous(),
-            torch.from_numpy(amT).to(dev)[:, q_idx].contiguous(),
-            torch.where(live, qlen[q_idx], 1),
-            g.codes[pos][:, :N].t().contiguous(),
-            torch.clamp(g.tlen_dev[pos], max=N).to(torch.int32))
     emit({"phase": "cluster_prefetch_lanes", "lanes": R,
           "live": int(live.sum()), "card": gpu})
     for rec in nw_records(gpu, key, scheme, args, "_cluster"):
@@ -846,8 +924,7 @@ def phase_cluster_kernels(gpu, amp_path):
     t4 = g.codes[p1][:, :N].contiguous()
     tlen1 = torch.clamp(g.tlen_dev[p1], max=N).to(torch.int32)
     k2 = nw_rowscan.build_forward(key)
-    k2_args = (torch.from_numpy(qmT).to(dev), torch.from_numpy(amT).to(dev),
-               qlen, t4.t().contiguous(), tlen1)
+    k2_args = (qmT, amT, qlen, t4.t().contiguous(), tlen1)
     k2_ms = timed(lambda: k2(*k2_args), 3)
     del k2_args
     q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, qp, M)).to(dev)
@@ -1432,14 +1509,18 @@ def phase_cluster_full(gpu, amp_path):
           "host_phase_s": host_phase_s, "card": gpu})
     phasetimer.reset()
     k4_name = "score_kernel<2>"              # EPI_RANK_KEY
+    # K3 and the int16 fills that zero its ops (nw_batch.backtrack_rle)
+    k3_names = ("nw_backtrack_kernel", "FillFunctor<short>")
     with ranked_words() as scanned:
         traced = trace(lambda: run("cluster_traced"),
-                       match=("nw_rowscan", k4_name))
+                       match=("nw_rowscan", k4_name) + k3_names)
     phasetimer.ENABLED = False
     k2 = traced["device_ms_matching"]["nw_rowscan"]
     k4 = traced["device_ms_matching"][k4_name]
     emit(dict({"phase": "cluster_full_traced"}, **traced,
               nw_rowscan_share=k2 / 1e3 / traced["seconds"],
+              nw_backtrack_ms=sum(traced["device_ms_matching"][m]
+                                  for m in k3_names),
               score_ranked_ms=k4, score_ranked_launches=scanned.launches,
               score_ranked_ms_per_launch=k4 / max(1, scanned.launches),
               score_ranked_mean_words=scanned.words
@@ -1568,6 +1649,8 @@ def main() -> int:
     }
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
+    # K3's time right after K2 and its walks' entries a lane
+    k3_fields = ("ms_after_k2", "max_steps", "mean_steps")
     line = []
     for name, (src, rep) in sources.items():
         entry = {"name": name, "route": "cuda", "source": src,
@@ -1575,7 +1658,8 @@ def main() -> int:
                  "launches": sum(n[name] for n in by_path.values()),
                  "launches_by_path": {p: n[name]
                                       for p, n in by_path.items()}}
-        entry.update({f: kern[name][f] for f in fields})
+        entry.update({f: kern[name][f] for f in fields + k3_fields
+                      if f in kern[name]})
         # K2, K3, K6 and K7 run at more than one shape: their numbers above
         # are at the search prefetch's, these at the cluster prefetch's and
         # (K2, K3) a walk round's; K4's above at the index's full capacity,
@@ -1583,7 +1667,9 @@ def main() -> int:
         for shape in ("cluster", "walk", "prefix"):
             if name + "_" + shape in kern:
                 other = kern[name + "_" + shape]
-                entry[shape + "_shape"] = {f: other[f] for f in fields}
+                entry[shape + "_shape"] = {f: other[f]
+                                           for f in fields + k3_fields
+                                           if f in other}
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            other["max_abs_err"])
         line.append(entry)

@@ -279,13 +279,17 @@ def _run_wraps(dirs, mr=None) -> int:
 # (case, M, N, B): the four schemes; sizes off every multiple of 32 and of
 # a block's pairs; the search prefetch (640 x 640 x 512), the cluster
 # prefetch (512 x 512 x 2048) and a walk round (640 x 640 x 128); runs
-# that pass RLCAP twice in 600 nt
+# that pass RLCAP twice in 600 nt; then batches off K3's pairs a block
+# and a warp (1, 33, 129, 2049) and planes with M != N
 ROWSCAN_SHAPES = ([(c, 200, 150, 300) for c in sorted(CASES)
                    if c != "identity"]
                   + [("default", 1, 1, 1), ("default", 33, 47, 17),
                      ("iupac", 33, 47, 17), ("default", 640, 640, 512),
                      ("default", 512, 512, 2048), ("default", 640, 640, 128),
-                     ("identity", 640, 640, 64)])
+                     ("identity", 640, 640, 64)]
+                  + [("default", 120, 130, 1), ("default", 120, 130, 33),
+                     ("default", 120, 130, 129), ("default", 200, 150, 2049),
+                     ("default", 640, 200, 64), ("default", 200, 640, 64)])
 
 
 @pytest.mark.parametrize("case,M,N,B", ROWSCAN_SHAPES)
@@ -318,6 +322,81 @@ def test_rowscan_and_backtrack_kernels_match_plain(cuda_device, case, M, N,
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["nw_backtrack"] == 1
     assert _same(ops_ref, ops_got)
+
+
+def _random_seq(rng, n):
+    return "".join(rng.choice("ACGT") for _ in range(n)).encode()
+
+
+def _backtrack_case(case, rng):
+    """(pairs, M, N, lengths K3 walks or None for the pairs' own) of a
+    K3-only case."""
+    if case == "reject":
+        # random pairs as long as the plane: paths of well over 150 runs
+        qs = [_random_seq(rng, rng.randint(450, 512)) for _ in range(64)]
+        ts = [_random_seq(rng, rng.randint(450, 512)) for _ in range(64)]
+        return qs, ts, 512, 512, None
+    if case == "gap_chains":
+        # one gap of 1..40 in each pair, a deletion (D moves, up the
+        # rows) or an insertion (I moves, along a row), so chains of
+        # every length cross a window's edge on either side
+        qs, ts = [], []
+        for g in range(1, 41):
+            q = _random_seq(rng, 260)
+            at = rng.randint(40, 200)
+            qs += [q, q]
+            ts += [q[:at] + q[at + g:], q[:at] + _random_seq(rng, g) + q[at:]]
+        return qs, ts, 264, 304, None
+    if case == "drains":
+        # boundary drains: short queries against long targets and the
+        # reverse, and lanes with one length 0 whose whole walk is drains,
+        # over 4095 in two of them (the count's cap)
+        qs = [_random_seq(rng, 12), _random_seq(rng, 4200), b"A", b"A",
+              _random_seq(rng, 300), _random_seq(rng, 9)]
+        ts = [_random_seq(rng, 4200), _random_seq(rng, 20), b"C", b"C",
+              _random_seq(rng, 280), _random_seq(rng, 4100)]
+        lens = ([12, 4200, 0, 4200, 300, 9], [4200, 20, 4200, 0, 280, 0])
+        return qs, ts, 4200, 4200, lens
+    # len1: one sequence of each pair a single nucleotide
+    qs, ts = [], []
+    for k in range(32):
+        a, b = _random_seq(rng, 1), _random_seq(rng, rng.randint(1, 64))
+        qs.append(a if k % 2 else b)
+        ts.append(b if k % 2 else a)
+    return qs, ts, 64, 64, None
+
+
+@pytest.mark.parametrize("case", ["reject", "gap_chains", "drains", "len1"])
+def test_backtrack_kernel_matches_plain(cuda_device, case):
+    """K3 alone against its plain version on planes from K2's plain
+    version: paths that need many windows, gap chains crossing a window's
+    edge, boundary drains (and the 4095 cap), single-nucleotide pairs."""
+    key = _default_key()
+    qs, ts, M, N, lens = _backtrack_case(case, random.Random(case))
+    B = len(qs)
+    qmT, amT = nw_batch.encode_rowT(qs, B, M, key[1], bool(key[14]))
+    t4T = np.ascontiguousarray(nw_batch.encode_padded(ts, B, N).T)
+    qlen = np.array([len(q) for q in qs], dtype=np.int32)
+    tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (qmT, amT, qlen, t4T, tlen)]
+    _, _, dirs = nw_rowscan.forward_plain(
+        key, nw_rowscan._scheme(key).score_min(),
+        nw_rowscan.overflow_possible(key, M, N), *args)
+    if lens is not None:
+        args[2], args[4] = (torch.tensor(v, dtype=torch.int32,
+                                         device=cuda_device) for v in lens)
+    ref = nw_batch.backtrack_rle_plain(dirs, args[2], args[4])
+    cuda_lib.reset_launches()
+    got = nw_batch.backtrack_rle(dirs, args[2], args[4])
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_backtrack"] == 1
+    assert _same(ref, got)
+    steps = (ref != 0).sum(dim=0)
+    if case == "reject":
+        assert int(steps.max()) > 150
+    if case == "drains":
+        assert int(((ref >> 2) == 4095).sum()) >= 2
 
 
 @pytest.mark.parametrize("case,M,N,B", [(c, 200, 150, 300) for c in

@@ -3,7 +3,10 @@ ops.nw_batch) against the JAX package on the same inputs.
 
 The forward is compared with the Pallas row-scan kernel
 (nw_pallas2.build_forward2) in interpret mode, cell for cell: score,
-overflow flag and the whole uint16 direction/run-length plane.  The batched
+overflow flag and the whole uint16 direction/run-length plane.  The
+run-length backtrack's plain version (K3's) walks that Pallas plane, and
+its op | count << 2 entries, expanded into single moves, are compared
+with the JAX package's own row-layout walk of the same plane.  The batched
 aligner, forced through the port's device path (plain versions on the
 CPU), is compared with the scalar oracle align_pair_host.  Every
 comparison is exact.
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from vsearch_tpu.ops import nw as jax_nw
+from vsearch_tpu.ops import nw_jax
 from vsearch_tpu.ops.nw_pallas2 import build_forward2
 from vsearch_tpu.params import Parameters
 from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_rowscan
@@ -93,6 +97,80 @@ def test_forward_matches_pallas(case):
     if case == "overflow":
         assert o_t.any() and not o_t.all()
 
+
+
+def _expand_moves(ops: np.ndarray, steps: int) -> np.ndarray:
+    """(S, B) op | count << 2 entries -> (steps, B) single moves, 0 after
+    the walk."""
+    out = np.zeros((steps, ops.shape[1]), dtype=np.int16)
+    for b in range(ops.shape[1]):
+        col = [int(v) for v in ops[:, b] if v]
+        moves = [v & 3 for v in col for _ in range(v >> 2)]
+        out[:len(moves), b] = moves
+    return out
+
+
+def _backtrack_pairs(case, rng, M, N):
+    """128 seeded pairs: family pairs with substitutions and indels beside
+    random ones; for "identity", identical and near-identical pairs as
+    long as the plane, whose diagonal runs pass RLCAP."""
+    alphabet = "ACGTNRYSWKM" if case == "iupac" else "ACGT"
+    pairs = []
+    for k in range(128):
+        if case == "identity":
+            q = random_seq(rng, rng.randint(M - 8, M))
+            t = bytearray(q)
+            edit = k % 4
+            pos = rng.randrange(len(t))
+            if edit == 1:
+                t[pos] = ord(rng.choice(alphabet))
+            elif edit == 2:
+                del t[pos:pos + rng.randint(1, 20)]
+            elif edit == 3:
+                t[pos:pos] = random_seq(rng, rng.randint(1, 20))
+            pairs.append((q, bytes(t[:N]) or b"A"))
+        elif rng.random() < 0.6:
+            q = random_seq(rng, rng.randint(1, M), alphabet)
+            pairs.append((q, mutate(rng, q)[:N]))
+        else:
+            pairs.append((random_seq(rng, rng.randint(1, M), alphabet),
+                          random_seq(rng, rng.randint(1, N), alphabet)))
+    return pairs
+
+
+@pytest.mark.parametrize("case", ["mixed", "identity", "iupac"])
+def test_backtrack_plain_matches_jax_row_walk(one_thread, case):
+    """K3's plain version on the Pallas forward's plane against the JAX
+    package's flat walk of the same plane (nw_jax.backtrack with
+    row_layout=True, the XLA twin _build_kernels returns for Bp=-1): the
+    run-length entries, expanded, are the same moves."""
+    import jax
+    import jax.numpy as jnp
+    key = _default_key()
+    M = N = 264
+    rng = random.Random({"mixed": 21, "identity": 22, "iupac": 23}[case])
+    pairs = _backtrack_pairs(case, rng, M, N)
+    qmT, amT, qlen, t4T, tlen = _wire(key, [q for q, _ in pairs],
+                                      [t for _, t in pairs], M, N)
+    _, _, d_j = build_forward2(key, M, N, len(pairs), interpret=True)(
+        jnp.asarray(qmT), jnp.asarray(amT.astype(np.int8)),
+        jnp.asarray(qlen), jnp.asarray(t4T), jnp.asarray(tlen))
+    bt = nw_jax._build_kernels(key, M, N, Bp=-1)[1]
+    moves = np.asarray(jax.jit(bt.__wrapped__,
+                               static_argnames="row_layout")(
+        d_j, jnp.asarray(qlen), jnp.asarray(tlen), row_layout=True))
+    dirs = torch.from_numpy(np.array(d_j).view(np.int16)).view(torch.uint16)
+    cuda_lib.reset_launches()
+    ops = nw_batch.backtrack_rle(dirs, torch.from_numpy(qlen),
+                                 torch.from_numpy(tlen)).numpy()
+    assert cuda_lib.PLAIN_CALLS["nw_backtrack"] == 1
+    assert ops.shape == (M + N, len(pairs))
+    assert np.array_equal(_expand_moves(ops, moves.shape[0]), moves)
+    runs = (ops >> 2)[(ops & 3) == nw_batch.OP_M]
+    assert runs.max() <= nw_rowscan.RLCAP
+    if case == "identity":
+        # the identical pairs' runs reach RLCAP and restart
+        assert (runs == nw_rowscan.RLCAP).sum() >= 16
 
 def mutate(rng, seq):
     t = bytearray(seq)

@@ -146,7 +146,8 @@ def backtrack_rle(dirs: torch.Tensor, qlen: torch.Tensor,
         return backtrack_rle_plain(dirs, qlen, tlen)
     dirs, qlen, tlen = dirs.contiguous(), qlen.contiguous(), tlen.contiguous()
     S = M + N
-    ops = torch.empty((S, B), dtype=torch.int16, device=dirs.device)
+    # K3 stores only the walked entries: the rest of the wire is these 0s
+    ops = torch.zeros((S, B), dtype=torch.int16, device=dirs.device)
     rc = _bt_lib().nw_backtrack_launch(
         dirs.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), M, N, B, S,
         ops.data_ptr(), cuda_lib.stream_ptr(dirs.device))
