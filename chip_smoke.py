@@ -26,10 +26,12 @@ line):
    filled prefix its top-k scans (896 words at the cell's 25 000
    centroids), K2 and K3 at the
    cluster prefetch's shape, K2m and K5 on the allpairs cell's first
-   batch (W=400, B=4096), K6 and K7 under --mismatch -200 on the search
-   prefetch's top-1 pairs (B=512, M=N=640) and on the cluster round's
-   top-1 pairs (B=512, M=N=512), each beside K2's time on the same pairs
-   under the default scheme;
+   batch (W=400, B=4096; K5 also right after a fresh K2m launch wrote its
+   planes, ms_after_k2m, beside its entries a lane and the windows a
+   lane that window_rounds models), K6 and
+   K7 under --mismatch -200 on the search prefetch's top-1 pairs (B=512,
+   M=N=640) and on the cluster round's top-1 pairs (B=512, M=N=512),
+   each beside K2's time on the same pairs under the default scheme;
 3. run usearch_global through the CLI on two small workloads, four
    option sets each (the fourth with --mismatch -200): on cuda as routed,
    on cuda with every walk round forced onto the device aligner, and on
@@ -38,10 +40,12 @@ line):
    launches apart from the prefetch's; then four clustering runs of a
    small family workload (the fourth --cluster_fast --mismatch -200) with
    the device tier from the 16th centroid on, on cuda and on cpu, uc and
-   centroids byte-equal; then allpairs_global on 48 sequences with five
+   centroids byte-equal; then allpairs_global on 48 sequences with seven
    option sets, on cuda and on cpu, every output byte-equal, K2m and K5
-   launched on the stats pipeline's four and not on --acceptall (the
-   generic path).  The --mismatch -200 runs must launch K6 and K7 and no
+   launched on the stats pipeline's six (one with --match 220, where
+   some pairs overflow the 16-bit forward, one with --minsl 0.8, where
+   the unaligned gate filters pairs) and not on --acceptall (the generic
+   path).  The --mismatch -200 runs must launch K6 and K7 and no
    K2, K3 or plain version; every other run no K6 or K7;
 4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
    sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
@@ -653,11 +657,15 @@ def nw_records(gpu, key, scheme, args, tag: str):
                      1)
     lane_steps = (ops_k != 0).sum(dim=0)
     steps = int(lane_steps.sum())
-    # data-dependent: the dirs cells on the walked paths, lengths, ops out
-    k3_bytes = steps * 2 + 2 * B * 4 + ops_k.numel() * 2
+    reads = int(cells_read(ops_k.cpu().numpy(), qlen.cpu().numpy(),
+                           tlen.cpu().numpy()).sum())
+    # data-dependent: the dirs cells on the walked paths (drains read
+    # none), lengths, ops out
+    k3_bytes = reads * 2 + 2 * B * 4 + ops_k.numel() * 2
     bound_ms, bound_by = bound(k3_bytes, steps * 10, INT32_OPS)
     out.append({"kernel": "nw_backtrack" + tag,
-                "shape": {"B": B, "M": M, "N": N, "steps": steps},
+                "shape": {"B": B, "M": M, "N": N, "steps": steps,
+                          "reads": reads},
                 "ms": ms, "ms_after_k2": ms_after_k2, "plain_ms": plain_ms,
                 "library_ms": None, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": err3,
@@ -934,16 +942,14 @@ def phase_cluster_kernels(gpu, amp_path):
     return out
 
 
-def phase_allpairs_kernels(gpu, ap_path):
-    """K2m and K5 on the allpairs cell's first batch (W=400, B=4096: the
-    triangle's first PAIR_BATCH pairs, gathered as AllPairsDevice.run
-    gathers them), each against its plain version; K5 reads K2m's
-    planes.  No single PyTorch call computes either function."""
+def allpairs_first_batch(ap_path):
+    """(AllPairsDevice, scheme, K2m's inputs) of the allpairs cell's first
+    batch (W=400, B=4096: the triangle's first PAIR_BATCH pairs, gathered
+    as AllPairsDevice.run gathers them)."""
     import numpy as np
     import torch
     from vsearch_tpu_torch import cli, device
-    from vsearch_tpu_torch.ops import allpairs_dev, cuda_lib, nw_batch
-    from vsearch_tpu_torch.ops import nw_rowscan
+    from vsearch_tpu_torch.ops import allpairs_dev
     from vsearch_tpu_torch.ops.nw import ScoreScheme
 
     dev = device.select("cuda")
@@ -955,6 +961,71 @@ def phase_allpairs_kernels(gpu, ap_path):
     B = ap.batch
     args = ap.batch_wire(torch.from_numpy(qpos[:B]).to(dev),
                          torch.from_numpy(tpos[:B]).to(dev))
+    return ap, scheme, args
+
+
+def k5_span() -> int:
+    """K5_SPAN of the shipped csrc/nw_stats.cu."""
+    import re
+    from vsearch_tpu_torch.ops import cuda_lib
+    text = (cuda_lib.CSRC / "nw_stats.cu").read_text()
+    return int(re.search(r"#define K5_SPAN (\d+)", text).group(1))
+
+
+def cells_read(ops, qlen, tlen):
+    """Entries a lane that read a cell of the plane (numpy, from K3's ops
+    wire): every entry but the boundary drains, those taken with i < 0 or
+    j < 0."""
+    import numpy as np
+    v = ops.astype(np.int64) & 0xFFFF
+    op, cnt = v & 3, v >> 2
+    di = np.where((op == 1) | (op == 2), cnt, 0)
+    dj = np.where((op == 1) | (op == 3), cnt, 0)
+    # i and j before each entry
+    i = qlen.astype(np.int64) - 1 - (np.cumsum(di, axis=0) - di)
+    j = tlen.astype(np.int64) - 1 - (np.cumsum(dj, axis=0) - dj)
+    return ((v != 0) & (i >= 0) & (j >= 0)).sum(axis=0)
+
+
+def window_rounds(ops, qlen, tlen, span: int):
+    """Windows a lane fetches walking its ops (numpy, from K3's ops wire)
+    through triangle windows of a span, modelled on the host by the rule
+    K3 and K5 walk by: a fetch wherever the cell read lies outside the
+    last window, (ai - i) + (aj - j) >= span."""
+    import numpy as np
+    i = qlen.astype(np.int64) - 1
+    j = tlen.astype(np.int64) - 1
+    far = np.int64(1 << 40)
+    ai = np.full_like(i, far)
+    aj = np.full_like(j, far)
+    rounds = np.zeros_like(i)
+    for row in ops:
+        v = row.astype(np.int64) & 0xFFFF
+        op, cnt = v & 3, v >> 2
+        read = (v != 0) & (i >= 0) & (j >= 0)
+        need = read & ((ai - i) + (aj - j) >= span)
+        rounds += need
+        ai = np.where(need, i, ai)
+        aj = np.where(need, j, aj)
+        i = i - np.where((op == 1) | (op == 2), cnt, 0)
+        j = j - np.where((op == 1) | (op == 3), cnt, 0)
+    return rounds
+
+
+def phase_allpairs_kernels(gpu, ap_path):
+    """K2m and K5 on the allpairs cell's first batch (allpairs_first_batch),
+    each against its plain version; K5 reads K2m's planes.  No single
+    PyTorch call computes either function."""
+    import numpy as np
+    import torch
+    from vsearch_tpu_torch import device
+    from vsearch_tpu_torch.ops import allpairs_dev, cuda_lib, nw_batch
+    from vsearch_tpu_torch.ops import nw_rowscan
+
+    dev = device.select("cuda")
+    ap, scheme, args = allpairs_first_batch(ap_path)
+    qpos, tpos = np.triu_indices(AP_SEQS, 1)
+    B = ap.batch
     _, _, _, qlen, _, tlen = args
     W = ap.W
     key = tuple(int(v) for v in nw_batch.BatchAligner(scheme, dev)._key)
@@ -1010,29 +1081,47 @@ def phase_allpairs_kernels(gpu, ap_path):
     emit(out["nw_rowscan_mr"])
 
     # K5 on those planes; K3 walks the same path, so its nonzero ops
-    # count the walk's steps
+    # count the walk's entries (and its windows at K5's span)
     dirs, mr = got[2], got[3]
     cuda_lib.reset_launches()
     st = allpairs_dev.stats_walk(dirs, mr, qlen, tlen)
     st_ref = allpairs_dev.stats_walk_plain(dirs, mr, qlen, tlen)
-    steps = int((nw_batch.backtrack_rle_plain(dirs, qlen, tlen) != 0).sum())
+    ops = nw_batch.backtrack_rle_plain(dirs, qlen, tlen)
+    lane_steps = (ops != 0).sum(dim=0)
+    steps = int(lane_steps.sum())
     torch.cuda.synchronize()
     err = max_abs_err(st, st_ref)
     require(err == 0, "K5 differs from its plain version")
     launches = cuda_lib.LAUNCHES["nw_stats"]
+    span = k5_span()
+    ops_np, ql, tl = (t.cpu().numpy() for t in (ops, qlen, tlen))
+    windows = window_rounds(ops_np, ql, tl, span)
+    reads = int(cells_read(ops_np, ql, tl).sum())
+    diagonal = int(((ops_np & 3) == 1).sum())
+    del ops, ops_np
     ms = timed(lambda: allpairs_dev.stats_walk(dirs, mr, qlen, tlen), 10)
+    # right after a fresh K2m launch wrote the planes, as the pipeline
+    # runs it
+    ms_after_k2m = timed_after(
+        lambda: fwd(*args, out=planes),
+        lambda g: allpairs_dev.stats_walk(g[2], g[3], qlen, tlen), 5)
     plain_ms = timed(lambda: allpairs_dev.stats_walk_plain(
         dirs, mr, qlen, tlen), 1)
-    # data-dependent: the dirs and mr cells on the walked paths, lengths,
-    # stats out
-    nbytes = steps * 3 + 2 * B * 4 + st.numel() * 4
+    # data-dependent: the dirs cells on the walked paths (drains read
+    # none), the mr cells of their diagonal entries, lengths, stats out
+    nbytes = reads * 2 + diagonal + 2 * B * 4 + st.numel() * 4
     bound_ms, bound_by = bound(nbytes, steps * 15, INT32_OPS)
     cols = st.to(torch.float64).mean(dim=0).tolist()
     out["nw_stats"] = {
         "kernel": "nw_stats", "shape": {"B": B, "M": W, "N": W,
-                                        "steps": steps},
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                                        "steps": steps, "reads": reads,
+                                        "diagonal": diagonal},
+        "ms": ms, "ms_after_k2m": ms_after_k2m, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": err, "max_steps": int(lane_steps.max()),
+        "mean_steps": steps / B, "span": span,
+        "model_windows_max": int(windows.max()),
+        "model_windows_mean": float(windows.mean()),
         "mean_stats": dict(zip(allpairs_dev.STATS_COLUMNS, cols)),
         "launches": launches, "card": gpu}
     emit(out["nw_stats"])
@@ -1302,11 +1391,12 @@ def phase_cluster_parity(gpu):
 
 
 def phase_allpairs_parity(gpu):
-    """allpairs_global on the 48 sequences of write_pairs_workload, five
+    """allpairs_global on the 48 sequences of write_pairs_workload, seven
     option sets, each on cuda and on cpu (the plain versions): every output
-    byte-equal.  The four stats-pipeline sets must launch K2m and K5 (and
-    no plain version); --acceptall takes the generic path and launches
-    neither."""
+    byte-equal.  The six stats-pipeline sets must launch K2m and K5 (and
+    no plain version), the overflow set with some pairs and not all
+    overflowing, the gate set with the gate filtering pairs; --acceptall
+    takes the generic path and launches neither."""
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.ops import cuda_lib
     d = WORK / "aparity"
@@ -1323,7 +1413,19 @@ def phase_allpairs_parity(gpu):
                            "--blast6out", "{o}.b6"],
         "leftjust": ["--id", "0.3", "--leftjust", "--blast6out", "{o}.b6"],
         "acceptall": ["--acceptall", "--blast6out", "{o}.b6", "--uc",
-                      "{o}.uc"]}
+                      "{o}.uc"],
+        # a match score that takes some near-identical pairs past the
+        # 16-bit forward's range (K2m's overflow flag, the realign of the
+        # overflow pairs) and leaves the rest inside it; both packages
+        # accept it (tests/test_torch_allpairs.py runs the same set
+        # against vsearch_tpu)
+        "match_overflow": ["--id", "0.5", "--match", "220", "--userout",
+                           "{o}.user", "--userfields",
+                           "query+target+id+raw"],
+        # the unaligned gate: a length ratio filters the triangle
+        "minsl_gate": ["--id", "0.4", "--minsl", "0.8", "--blast6out",
+                       "{o}.b6", "--uc", "{o}.uc"]}
+    n_pairs = 48 * 47 // 2
     for name, opts in option_sets.items():
         outs = {}
         for run in ("cuda", "cpu"):
@@ -1347,6 +1449,14 @@ def phase_allpairs_parity(gpu):
             require(all((launches[k] > 0) == fast for k in ALLPAIRS_KERNELS),
                     "K2m/K5 launches do not fit the path (%s)" % name)
             require_wire(launches, False, "allpairs " + name)
+            if name == "match_overflow":
+                require(0 < counts.overflow < counts.pairs,
+                        "%d of %d pairs overflowed under --match 220"
+                        % (counts.overflow, counts.pairs))
+            if name == "minsl_gate":
+                require(0 < counts.pairs < n_pairs,
+                        "the gate passed %d of %d pairs"
+                        % (counts.pairs, n_pairs))
             emit({"phase": "allpairs_parity_launches", "options": name,
                   "launches": launches, **counts.record(), "card": gpu})
         require(outs["cuda"] == outs["cpu"],
@@ -1649,8 +1759,11 @@ def main() -> int:
     }
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
-    # K3's time right after K2 and its walks' entries a lane
-    k3_fields = ("ms_after_k2", "max_steps", "mean_steps")
+    # the walks (K3, K5): their times right after the forward that writes
+    # their planes, their entries a lane and K5's windows a lane as the
+    # host models them (window_rounds)
+    walk_fields = ("ms_after_k2", "ms_after_k2m", "max_steps", "mean_steps",
+                   "model_windows_max", "model_windows_mean")
     line = []
     for name, (src, rep) in sources.items():
         entry = {"name": name, "route": "cuda", "source": src,
@@ -1658,7 +1771,7 @@ def main() -> int:
                  "launches": sum(n[name] for n in by_path.values()),
                  "launches_by_path": {p: n[name]
                                       for p, n in by_path.items()}}
-        entry.update({f: kern[name][f] for f in fields + k3_fields
+        entry.update({f: kern[name][f] for f in fields + walk_fields
                       if f in kern[name]})
         # K2, K3, K6 and K7 run at more than one shape: their numbers above
         # are at the search prefetch's, these at the cluster prefetch's and
@@ -1668,7 +1781,7 @@ def main() -> int:
             if name + "_" + shape in kern:
                 other = kern[name + "_" + shape]
                 entry[shape + "_shape"] = {f: other[f]
-                                           for f in fields + k3_fields
+                                           for f in fields + walk_fields
                                            if f in other}
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            other["max_abs_err"])

@@ -25,7 +25,7 @@ from vsearch_tpu_torch.ops import allpairs_dev, cuda_lib, nw_batch, nw_rowscan
 
 from .conftest import run_ours
 from .test_allpairs_fast import CASES, pairs_fasta  # noqa: F401 (fixture)
-from .test_torch_nw import _pairs, _schemes, _wire
+from .test_torch_nw import _pairs, _schemes, _wire, random_seq
 from .test_torch_search import run_port
 
 SCHEMES = ["default", "iupac", "n_mismatch", "overflow"]
@@ -82,23 +82,115 @@ def test_forward_with_matches_matches_pallas(case):
         assert o_t.any() and not o_t.all()
 
 
-@pytest.mark.parametrize("case", SCHEMES)
+def _hard_pairs(case, rng):
+    """(pairs, W, lengths the walk takes or None) of a stats-walk case
+    whose paths reach the walk's edge cases, on a W x W plane."""
+    if case == "gap_chains":
+        # one gap of every length 1-40 in a pair, a deletion (D moves) or
+        # an insertion (I moves): chains of every length
+        qs, ts = [], []
+        for g in range(1, 41):
+            q = random_seq(rng, 60)
+            qs.append(q)
+            ts.append(q[:10] + q[10 + g:])
+            q = random_seq(rng, 24)
+            qs.append(q)
+            ts.append(q[:10] + random_seq(rng, g) + q[10:])
+        return qs, ts, 64, None
+    if case == "drains":
+        # lengths past the 32 x 32 plane (reads clamp to its last row or
+        # column, the walk cut at S = 64 entries), 0 (the whole walk is
+        # drains) and 4200 (drains capped at 4095, two entries of one run)
+        qs = [random_seq(rng, rng.randint(5, 32)) for _ in range(8)]
+        ts = [random_seq(rng, rng.randint(5, 32)) for _ in range(8)]
+        lens = ([0, 4200, 0, 12, 4200, 40, 0, 31],
+                [4200, 0, 0, 4200, 4200, 20, 9, 70])
+        return qs, ts, 32, lens
+    if case == "len1":
+        # one sequence of each pair a single nucleotide
+        qs, ts = [], []
+        for k in range(32):
+            a, b = random_seq(rng, 1), random_seq(rng, rng.randint(1, 64))
+            qs.append(a if k % 2 else b)
+            ts.append(b if k % 2 else a)
+        return qs, ts, 64, None
+    # identity: ~300 nt copies, some with a substitution: diagonal runs
+    # past RLCAP restart with their match counts
+    qs, ts = [], []
+    for k in range(6):
+        q = random_seq(rng, 300 - 2 * k)
+        t = bytearray(q)
+        if k % 2:
+            t[rng.randrange(len(t))] = ord(rng.choice("ACGT"))
+        qs.append(q)
+        ts.append(bytes(t))
+    return qs, ts, 304, None
+
+
+def _stats_inputs(case):
+    """(dirs, mr, qlen, tlen) as tensors on the CPU: the planes from K2m's
+    plain version (16 x 16 x 128 for the schemes; a square plane per hard
+    case), the lengths the walk takes."""
+    if case in SCHEMES:
+        _, (_, _, _, qlen, _, tlen), (_, _, dirs, mr) = _forward(case)
+        return dirs, mr, torch.from_numpy(qlen), torch.from_numpy(tlen)
+    key = _schemes()["default"][0]
+    qs, ts, W, lens = _hard_pairs(case, random.Random(case))
+    qmT, amT, qlen, t4T, tlen = _wire(key, qs, ts, W, W)
+    rqT = np.ascontiguousarray(nw_batch.encode_padded(qs, len(qs), W).T)
+    _, _, dirs, mr = nw_rowscan.build_forward(key, with_matches=True)(
+        *(torch.from_numpy(a) for a in (qmT, amT, rqT, qlen, t4T, tlen)))
+    if lens is not None:
+        qlen, tlen = (np.array(v, dtype=np.int32) for v in lens)
+    return dirs, mr, torch.from_numpy(qlen), torch.from_numpy(tlen)
+
+
+@pytest.mark.parametrize("case", SCHEMES + ["gap_chains", "drains", "len1",
+                                            "identity"])
 def test_stats_walk_matches_jax(case):
+    """K5's plain version against the JAX build_allpairs_stats on the same
+    planes: the four schemes, and the walk's edge cases that the card tests
+    hold the kernel to (tests/test_torch_kernels.py)."""
     import jax.numpy as jnp
-    _, (_, _, _, qlen, _, tlen), (_, _, dirs, mr) = _forward(case)
-    qlen_t, tlen_t = torch.from_numpy(qlen), torch.from_numpy(tlen)
+    dirs, mr, qlen, tlen = _stats_inputs(case)
+    W, _, Bc = dirs.shape
     cuda_lib.reset_launches()
-    got = allpairs_dev.stats_walk(dirs, mr, qlen_t, tlen_t)
+    got = allpairs_dev.stats_walk(dirs, mr, qlen, tlen)
     assert cuda_lib.PLAIN_CALLS["nw_stats"] == 1
-    ref = build_allpairs_stats(16, 1, 128)(
+    ref = build_allpairs_stats(W, 1, Bc)(
         (jnp.asarray(dirs.view(torch.int16).numpy().view(np.uint16)),),
-        (jnp.asarray(mr.numpy()),), (jnp.asarray(qlen),),
-        (jnp.asarray(tlen),))
-    assert got.dtype == torch.int32 and tuple(got.shape) == (B, 8)
+        (jnp.asarray(mr.numpy()),), (jnp.asarray(qlen.numpy()),),
+        (jnp.asarray(tlen.numpy()),))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (Bc, 8)
     assert np.array_equal(np.asarray(ref), got.numpy())
-    # the walks meet gaps and matches, and end on gaps and on matches
-    assert (got[:, 3] > 0).any() and (got[:, 1] > 0).any()
-    assert {1, 2, 3} <= set(got[:, 4].tolist())
+    ops = nw_batch.backtrack_rle_plain(dirs, qlen, tlen)
+    op, cnt = ops & 3, ops >> 2
+    if case in SCHEMES:
+        # the walks meet gaps and matches, and end on gaps and on matches
+        assert (got[:, 3] > 0).any() and (got[:, 1] > 0).any()
+        assert {1, 2, 3} <= set(got[:, 4].tolist())
+    elif case == "gap_chains":
+        # gap chains of 20 moves and more
+        run = torch.zeros(Bc, dtype=torch.int64)
+        longest = 0
+        for row in op:
+            gap = (row == 2) | (row == 3)
+            run = torch.where(gap, run + 1, 0)
+            longest = max(longest, int(run.max()))
+        assert longest >= 20
+    elif case == "drains":
+        # capped drains, whole-drain lanes, a lane with no entry
+        assert int((cnt == 4095).sum()) >= 3
+        assert got[2].tolist() == [0] * 8
+        assert got[0].tolist() == [4200, 0, 4200, 1, 3, 4200, 3, 4200]
+    elif case == "len1":
+        # one diagonal column at most, the rest gaps
+        assert ((got[:, 0] - got[:, 2]) <= 1).all()
+        assert (got[:, 0] >= torch.maximum(qlen, tlen)).all()
+    else:
+        # RLCAP-split runs: a 255-match chunk, merged into one first run
+        assert int((mr == nw_rowscan.RLCAP).sum()) > 0
+        assert int((got[:, 5] >= 256).sum()) > 0
 
 
 # the issue's cases plus a mismatch score outside int8, which the JAX
@@ -107,6 +199,14 @@ PORT_CASES = CASES + [
     ("mismatch_m200", ["--id", "0.3", "--mismatch", "-200", "--blast6out",
                        "{o}.b6", "--uc", "{o}.uc"]),
     ("basic_batch96", CASES[0][1]),
+    # a match score that takes the near-identical pairs' scores past the
+    # 16-bit forward's range (the overflow path) and leaves the random
+    # pairs' inside it
+    ("match_overflow", ["--id", "0.5", "--match", "220", "--userout",
+                        "{o}.user", "--userfields", "query+target+id+raw"]),
+    # the unaligned gate (a length ratio) filters the triangle's pairs
+    ("minsl_gate", ["--id", "0.4", "--minsl", "0.8", "--blast6out",
+                    "{o}.b6", "--uc", "{o}.uc"]),
 ]
 # the port's process computes on one CPU thread: the suite runs its files
 # in parallel workers, where torch's intra-op threads would oversubscribe
@@ -140,6 +240,10 @@ def test_allpairs_matches_jax(pairs_fasta, tmp_path, name,  # noqa: F811
             jax_b = b"\n".join(jax_b.split(b"\n")[2:])
             port_b = b"\n".join(port_b.split(b"\n")[2:])
         assert port_b == jax_b, "%s: %s differs" % (name, tpl)
+    if name == "match_overflow":
+        raws = [int(ln.split(b"\t")[3])
+                for ln in (tmp_path / "port.user").read_bytes().splitlines()]
+        assert max(raws) > 32767
     calls = rep["plain_calls"]
     if name == "acceptall":
         # the generic path: every pair through the batched aligner

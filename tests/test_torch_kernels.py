@@ -443,6 +443,93 @@ def test_rowscan_mr_and_stats_kernels_match_plain(cuda_device, case, M, N,
     assert _same(st_ref, st_got)
 
 
+# K5-only cases: K3's four, identical 400 nt pairs (RLCAP wraps, mr at
+# 255), the overflow scheme, and random 400 nt pairs as the allpairs cell
+# has them at B = 1, 17 and 152 (the cell's tail batch)
+STATS_CASES = ["reject", "gap_chains", "drains", "len1", "identity",
+               "overflow", "cell_b1", "cell_b17", "cell_b152"]
+
+
+def _stats_planes(case, device):
+    """(dirs, mr, qlen, tlen, overflow) of a K5-only case: the planes from
+    K2m's plain version, the lengths K5 walks (past the plane in the drains
+    case)."""
+    rng = random.Random(case)
+    key = _default_key(match=2500 if case == "overflow" else None)
+    lens = None
+    if case in ("reject", "gap_chains", "drains", "len1"):
+        qs, ts, M, N, lens = _backtrack_case(case, rng)
+        if case == "drains":
+            # and lanes whose lengths run past the plane: their reads
+            # clamp to its last row or column
+            qs += [_random_seq(rng, 300) for _ in range(3)]
+            ts += [_random_seq(rng, 280) for _ in range(3)]
+            lens = (lens[0] + [4300, 4250, 4300],
+                    lens[1] + [4250, 4210, 100])
+    elif case == "identity":
+        # 400 nt copies, half of them with up to 3 substitutions
+        qs, ts = [], []
+        for k in range(32):
+            q = _random_seq(rng, 400)
+            t = bytearray(q)
+            for _ in range(k % 2 * rng.randint(1, 3)):
+                t[rng.randrange(400)] = ord(rng.choice("ACGT"))
+            qs.append(q)
+            ts.append(bytes(t))
+        M = N = 400
+    elif case == "overflow":
+        qs, ts = _pairs(rng, 96, 200, 150, "ACGT")
+        M, N = 200, 150
+    else:
+        B = int(case.split("_b")[1])
+        qs = [_random_seq(rng, 400) for _ in range(B)]
+        ts = [_random_seq(rng, 400) for _ in range(B)]
+        M = N = 400
+    B = len(qs)
+    qmT, amT = nw_batch.encode_rowT(qs, B, M, key[1], bool(key[14]))
+    rqT = np.ascontiguousarray(nw_batch.encode_padded(qs, B, M).T)
+    t4T = np.ascontiguousarray(nw_batch.encode_padded(ts, B, N).T)
+    qlen = np.array([len(q) for q in qs], dtype=np.int32)
+    tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    qmT, amT, rqT, qlen, t4T, tlen = (torch.from_numpy(a).to(device) for a in
+                                      (qmT, amT, rqT, qlen, t4T, tlen))
+    _, over, dirs, mr = nw_rowscan.forward_plain(
+        key, nw_rowscan._scheme(key).score_min(),
+        nw_rowscan.overflow_possible(key, M, N), qmT, amT, qlen, t4T, tlen,
+        rqT)
+    if lens is not None:
+        qlen, tlen = (torch.tensor(v, dtype=torch.int32, device=device)
+                      for v in lens)
+    return dirs, mr, qlen, tlen, over
+
+
+@pytest.mark.parametrize("case", STATS_CASES)
+def test_stats_kernel_matches_plain(cuda_device, case):
+    """K5 alone against its plain version on planes from K2m's plain
+    version: paths that need many windows, gap chains crossing a window's
+    edge, boundary drains (the 4095 cap splitting one into two entries of
+    one run, lanes of length 0, clamped reads past the plane),
+    single-nucleotide pairs, RLCAP-split runs with mr at 255, overflowing
+    pairs, and batches off a block's pairs."""
+    dirs, mr, qlen, tlen, over = _stats_planes(case, cuda_device)
+    ref = allpairs_dev.stats_walk_plain(dirs, mr, qlen, tlen)
+    cuda_lib.reset_launches()
+    got = allpairs_dev.stats_walk(dirs, mr, qlen, tlen)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_stats"] == 1
+    assert _same(ref, got)
+    ops = nw_batch.backtrack_rle_plain(dirs, qlen, tlen)
+    if case == "reject":
+        assert int((ops != 0).sum(dim=0).max()) > 150
+    if case == "drains":
+        assert int(((ops >> 2) == 4095).sum()) >= 2
+    if case == "identity":
+        assert _run_wraps(dirs, mr) >= 1
+        assert int((mr == nw_rowscan.RLCAP).sum()) > 0
+    if case == "overflow":
+        assert bool(over.any()) and not bool(over.all())
+
+
 @pytest.mark.parametrize("mismatch", [-4, -200])
 def test_batch_aligner_cuda_matches_cpu(cuda_device, monkeypatch, mismatch):
     """The aligner's device path gives the same results on the card as on

@@ -160,33 +160,33 @@ def build_all(sources: dict, out_dir: pathlib.Path) -> dict:
     return libs
 
 
-def variant_sources(src: str) -> dict:
-    out = {"shipped": src}
-    for name, (_, edits) in VARIANTS.items():
+def variant_sources(src: str, variants=VARIANTS, clock_edits=CLOCK_EDITS,
+                    clock_read=CLOCK_READ) -> dict:
+    """{name: source}: the shipped source, each variant's edits of it and
+    the clocked build ("clocks"); every edit's old text must be there."""
+    def edited(what, edits):
         text = src
         for old, new in edits:
             if old not in text:
-                raise RuntimeError("variant %s: %r not in the source"
-                                   % (name, old))
+                raise RuntimeError("%s: %r not in the source" % (what, old))
             text = text.replace(old, new)
-        out[name] = text
-    text = src
-    for old, new in CLOCK_EDITS:
-        if old not in text:
-            raise RuntimeError("clocks: %r not in the source" % old)
-        text = text.replace(old, new)
-    out["clocks"] = text + CLOCK_READ
+        return text
+    out = {"shipped": src}
+    for name, (_, edits) in variants.items():
+        out[name] = edited("variant " + name, edits)
+    out["clocks"] = edited("clocks", clock_edits) + clock_read
     return out
 
 
-def clock_summary(lib, B: int) -> dict:
+def clock_summary(lib, B: int, probe: str = "k3") -> dict:
     """Where the time of the clocked build's last launch went: the pair
-    whose walk took longest, and means over the pairs."""
+    whose walk took longest, and means over the pairs.  The build keeps 8
+    int64 a pair in <probe>_probe, read back by <probe>_probe_read."""
     import numpy as np
     buf = np.zeros((B, 8), dtype=np.int64)
-    lib.k3_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    chip_smoke.require(lib.k3_probe_read(buf.ctypes.data, B) == 0,
-                       "k3_probe_read")
+    read = getattr(lib, probe + "_probe_read")
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    chip_smoke.require(read(buf.ctypes.data, B) == 0, probe + "_probe_read")
     _, walk, fetch, rounds, entries, g0, g1, _ = buf.T
     k = int(np.argmax(walk))
     ns = max(int(g1[k] - g0[k]), 1)
@@ -209,33 +209,25 @@ def clock_summary(lib, B: int) -> dict:
         "sms": int(len(np.unique(buf[:, 7])))}
 
 
-def window_rounds(ops, qlen, tlen, span: int):
-    """Windows a lane fetches walking its ops at a triangle span (numpy,
-    from the ops wire): a fetch wherever the cell read lies outside the
-    last window, (ai - i) + (aj - j) >= span."""
-    import numpy as np
-    i = qlen.astype(np.int64) - 1
-    j = tlen.astype(np.int64) - 1
-    far = np.int64(1 << 40)
-    ai = np.full_like(i, far)
-    aj = np.full_like(j, far)
-    rounds = np.zeros_like(i)
-    for row in ops:
-        v = row.astype(np.int64) & 0xFFFF
-        op, cnt = v & 3, v >> 2
-        read = (v != 0) & (i >= 0) & (j >= 0)
-        need = read & ((ai - i) + (aj - j) >= span)
-        rounds += need
-        ai = np.where(need, i, ai)
-        aj = np.where(need, j, aj)
-        i = i - np.where((op == 1) | (op == 2), cnt, 0)
-        j = j - np.where((op == 1) | (op == 3), cnt, 0)
-    return rounds
-
-
 def flush_l2(dev):
     import torch
     torch.empty(64 << 20, dtype=torch.int32, device=dev).fill_(1)
+
+
+def cold_ms(run, dev, reps: int) -> float:
+    """Mean ms of run() launched right after 256 MB of writes flushed L2."""
+    import torch
+    total = 0.0
+    for _ in range(reps):
+        flush_l2(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def latency_probe(lib, dev, stream) -> dict:
@@ -273,17 +265,7 @@ def latency_probe(lib, dev, stream) -> dict:
                        "chase launch")
         chase()
         res["l2_" + tag] = cs.timed(chase, 3) * 1e6 / HOPS
-        total = 0.0
-        for _ in range(3):
-            flush_l2(dev)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            chase()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        res["dram_" + tag] = total / 3 * 1e6 / HOPS
+        res["dram_" + tag] = cold_ms(chase, dev, 3) * 1e6 / HOPS
         del buf, pos_t
         torch.cuda.empty_cache()
     return res
@@ -360,7 +342,7 @@ def main() -> int:
         ql, tl = qlen.cpu().numpy(), tlen.cpu().numpy()
         rounds = {}
         for span in sorted({s for s in result["spans"].values() if s}):
-            r = window_rounds(ref_np, ql, tl, span)
+            r = cs.window_rounds(ref_np, ql, tl, span)
             rounds[span] = {"max": int(r.max()), "mean": float(r.mean())}
         ops = torch.empty((S, B), dtype=torch.int16, device=dev)
 
@@ -371,20 +353,6 @@ def main() -> int:
                 d.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), M, N, B, S,
                 ops.data_ptr(), stream) == 0, "K3 launch")
             return ops
-
-        def cold(lib, reps=5):
-            k3(lib, dirs)
-            total = 0.0
-            for _ in range(reps):
-                flush_l2(dev)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                k3(lib, dirs)
-                end.record()
-                end.synchronize()
-                total += start.elapsed_time(end)
-            return total / reps
 
         times = {}
         order = list(libs) + list(reversed(list(libs)))
@@ -398,7 +366,8 @@ def main() -> int:
             t["warm"].append(cs.timed(lambda: k3(lib, dirs), 20))
             t["after_k2"].append(cs.timed_after(
                 lambda: fwd(*args)[2], lambda d: k3(lib, d), 5))
-            t["cold"].append(cold(lib))
+            k3(lib, dirs)
+            t["cold"].append(cold_ms(lambda: k3(lib, dirs), dev, 5))
         cs.require(torch.equal(k3(clocks, dirs), ref),
                    "clocks differs from the plain version (%s)" % tag)
         k3(clocks, fwd(*args)[2])
