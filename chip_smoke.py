@@ -30,8 +30,10 @@ line):
    planes, ms_after_k2m, beside its entries a lane and the windows a
    lane that window_rounds models), K6 and
    K7 under --mismatch -200 on the search prefetch's top-1 pairs (B=512,
-   M=N=640) and on the cluster round's top-1 pairs (B=512, M=N=512),
-   each beside K2's time on the same pairs under the default scheme;
+   M=N=640), on a walk round's (the first 128 of them) and on the cluster
+   round's top-1 pairs (B=512, M=N=512), each beside K2's time on the
+   same pairs under the default scheme (K7 also right after a fresh K6
+   launch wrote its plane, ms_after_k6);
 3. run usearch_global through the CLI on two small workloads, four
    option sets each (the fourth with --mismatch -200): on cuda as routed,
    on cuda with every walk round forced onto the device aligner, and on
@@ -541,6 +543,31 @@ def search_prefetch_args(ctx, qseqs, Kbits):
             qlen, t4T, tlen), p
 
 
+def search_codes_args(ctx, qseqs, args, p):
+    """K6's inputs (q4, qlen, t4, tlen) on the search prefetch's top-1
+    pairs, from search_prefetch_args' K2 inputs and positions."""
+    import torch
+    from vsearch_tpu_torch.ops import nw_batch
+    qlen, tlen = args[2], args[4]
+    M, N = args[0].shape[0], args[3].shape[0]
+    q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, len(qseqs), M))
+    return (q4.to(qlen.device), qlen,
+            ctx.device_index.db_codes[p][:, :N].contiguous(), tlen)
+
+
+def cluster_codes_args(g, qseqs, idx, qlen, M):
+    """K6's inputs (q4, qlen, t4, tlen) on a cluster round's top-1 pairs,
+    as the codes wire's prefetch (nw_batch.gather_align) builds them."""
+    import torch
+    from vsearch_tpu_torch.ops import nw_batch
+    N = g.codes_width
+    p1 = idx[:, 0].to(torch.int64).clamp(0, g.codes.shape[0] - 1)
+    t4 = g.codes[p1][:, :N].contiguous()
+    tlen = torch.clamp(g.tlen_dev[p1], max=N).to(torch.int32)
+    q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, len(qseqs), M))
+    return q4.to(qlen.device), qlen, t4, tlen
+
+
 def phase_kernels(gpu, db_path, q_path):
     """Each kernel against its plain version at the main path's shapes,
     with the main path's own inputs: the first 512-query chunk of the
@@ -550,7 +577,7 @@ def phase_kernels(gpu, db_path, q_path):
     from vsearch_tpu_torch import device
     from vsearch_tpu_torch.ops import cuda_lib, nw_batch, score_dense
 
-    dev = device.select("cuda")
+    device.select("cuda")
     ctx, qseqs, klists, Kbits = search_chunk(db_path, q_path)
     di = ctx.device_index
     bits, words, _, n_real = di.blocks[0]
@@ -586,20 +613,22 @@ def phase_kernels(gpu, db_path, q_path):
 
     # K2 + K3: each query aligned with its top-1 candidate (the prefetch)
     args, p = search_prefetch_args(ctx, qseqs, Kbits)
-    M, N = args[0].shape[0], args[3].shape[0]
-    qlen, tlen = args[2], args[4]
     out.extend(nw_records(gpu, ctx.aligner._key, ctx.scheme, args, ""))
     # K2 + K3 at a walk round's shape: the smallest pair bucket of them
     walk_b = nw_batch.BatchAligner.PAIR_BUCKETS[0]
     out.extend(nw_records(gpu, ctx.aligner._key, ctx.scheme,
                           tuple(a[..., :walk_b].contiguous() for a in args),
                           "_walk"))
-    # K6 + K7: the same pairs on the codes wire, under --mismatch -200
-    q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, qp, M)).to(dev)
+    # K6 + K7: the same pairs on the codes wire, under --mismatch -200, and
+    # a walk round's first 128 of them
+    codes = search_codes_args(ctx, qseqs, args, p)
+    key200 = mismatch_200_key(ctx.aligner._key)
     k2_ms = next(o["ms"] for o in out if o["kernel"] == "nw_rowscan")
+    out.extend(wavefront_records(gpu, key200, codes, "", k2_ms))
+    k2_ms = next(o["ms"] for o in out if o["kernel"] == "nw_rowscan_walk")
     out.extend(wavefront_records(
-        gpu, mismatch_200_key(ctx.aligner._key),
-        (q4, qlen, di.db_codes[p][:, :N].contiguous(), tlen), "", k2_ms))
+        gpu, key200, tuple(a[:walk_b].contiguous() for a in codes), "_walk",
+        k2_ms))
     return {o["kernel"]: o for o in out}
 
 
@@ -702,12 +731,16 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
     plain_ms = timed(lambda: nw_wavefront.forward_plain(
         key, score_min, *args), 1)
     cells = M * N * B
+    # data-dependent: the DP cells of the pairs' own lengths; the whole
+    # plane is written
+    valid = int((qlen.clamp(0, M).to(torch.int64)
+                 * tlen.clamp(0, N).to(torch.int64)).sum())
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + s_k.numel() * 4 + o_k.numel() + d_k.numel())
-    bound_ms, bound_by = bound(nbytes, cells * NW_CELL_OPS, INT32_OPS)
+    bound_ms, bound_by = bound(nbytes, valid * NW_CELL_OPS, INT32_OPS)
     out = [{"kernel": "nw_wavefront" + tag,
             "shape": {"B": B, "M": M, "N": N, "D": d_k.shape[0],
-                      "Ms": d_k.shape[2]},
+                      "Ms": d_k.shape[2], "cells": valid},
             "mismatch": key[1], "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "gcups": cells / (ms * 1e-3) / 1e9,
@@ -716,7 +749,8 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
             "launches": launches, "card": gpu}]
     emit(out[-1])
 
-    # K7: the flat backtrack of those alignments
+    # K7: the flat backtrack of those alignments, timed on one plane and
+    # right after a fresh K6 launch wrote it, as the pipeline runs it
     cuda_lib.reset_launches()
     ops_k = nw_batch.backtrack_flat(d_k, qlen, tlen)
     ops_p = nw_batch.backtrack_flat_plain(d_k, qlen, tlen)
@@ -725,6 +759,9 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
     require(err7 == 0, "K7 differs from its plain version" + tag)
     launches = cuda_lib.LAUNCHES["nw_backtrack_flat"]
     ms = timed(lambda: nw_batch.backtrack_flat(d_k, qlen, tlen), 10)
+    ms_after_k6 = timed_after(
+        lambda: fwd(*args)[2],
+        lambda d: nw_batch.backtrack_flat(d, qlen, tlen), 5)
     plain_ms = timed(lambda: nw_batch.backtrack_flat_plain(d_k, qlen, tlen),
                      1)
     steps = int((ops_k != 0).sum())
@@ -734,7 +771,8 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
     bound_ms, bound_by = bound(nbytes, steps * 10, INT32_OPS)
     out.append({"kernel": "nw_backtrack_flat" + tag,
                 "shape": {"B": B, "M": M, "N": N, "steps": steps},
-                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "ms": ms, "ms_after_k6": ms_after_k6, "plain_ms": plain_ms,
+                "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "max_abs_err": err7, "launches": launches, "card": gpu})
     emit(out[-1])
@@ -915,7 +953,6 @@ def phase_cluster_kernels(gpu, amp_path):
     R = ClusterEngine.PREFETCH_LANES
     args, live, idx, (qmT, amT, qlen) = cluster_prefetch_args(
         params, g, qseqs, klists, Kbits)
-    M, N = qmT.shape[0], g.codes_width
     scheme = ScoreScheme.from_params(params)
     key = nw_batch.BatchAligner(scheme, dev)._key
     emit({"phase": "cluster_prefetch_lanes", "lanes": R,
@@ -928,16 +965,13 @@ def phase_cluster_kernels(gpu, amp_path):
     # K6 + K7 on the round's top-1 pairs (the codes wire's prefetch,
     # nw_batch.gather_align), beside K2 on the same pairs under the
     # default scheme
-    p1 = idx[:, 0].to(torch.int64).clamp(0, g.codes.shape[0] - 1)
-    t4 = g.codes[p1][:, :N].contiguous()
-    tlen1 = torch.clamp(g.tlen_dev[p1], max=N).to(torch.int32)
+    codes = cluster_codes_args(g, qseqs, idx, qlen, qmT.shape[0])
     k2 = nw_rowscan.build_forward(key)
-    k2_args = (qmT, amT, qlen, t4.t().contiguous(), tlen1)
+    k2_args = (qmT, amT, qlen, codes[2].t().contiguous(), codes[3])
     k2_ms = timed(lambda: k2(*k2_args), 3)
     del k2_args
-    q4 = torch.from_numpy(nw_batch.encode_padded(qseqs, qp, M)).to(dev)
-    for rec in wavefront_records(gpu, mismatch_200_key(key),
-                                 (q4, qlen, t4, tlen1), "_cluster", k2_ms):
+    for rec in wavefront_records(gpu, mismatch_200_key(key), codes,
+                                 "_cluster", k2_ms):
         out[rec["kernel"]] = rec
     return out
 
@@ -1759,11 +1793,11 @@ def main() -> int:
     }
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
-    # the walks (K3, K5): their times right after the forward that writes
-    # their planes, their entries a lane and K5's windows a lane as the
+    # the walks (K3, K5, K7): their times right after the forward that
+    # writes their planes, their entries a lane and K5's windows a lane as the
     # host models them (window_rounds)
-    walk_fields = ("ms_after_k2", "ms_after_k2m", "max_steps", "mean_steps",
-                   "model_windows_max", "model_windows_mean")
+    walk_fields = ("ms_after_k2", "ms_after_k2m", "ms_after_k6", "max_steps",
+                   "mean_steps", "model_windows_max", "model_windows_mean")
     line = []
     for name, (src, rep) in sources.items():
         entry = {"name": name, "route": "cuda", "source": src,
@@ -1775,7 +1809,7 @@ def main() -> int:
                       if f in kern[name]})
         # K2, K3, K6 and K7 run at more than one shape: their numbers above
         # are at the search prefetch's, these at the cluster prefetch's and
-        # (K2, K3) a walk round's; K4's above at the index's full capacity,
+        # a walk round's; K4's above at the index's full capacity,
         # its prefix shape at the filled blocks the cell's top-k scans
         for shape in ("cluster", "walk", "prefix"):
             if name + "_" + shape in kern:

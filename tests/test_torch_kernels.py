@@ -565,18 +565,28 @@ WAVEFRONT_CASES = {
 }
 
 
-@pytest.mark.parametrize("case,M,N,B,smem", [
-    (c, 200, 150, 300, True) for c in sorted(WAVEFRONT_CASES)]
-    + [("mismatch_200", 200, 150, 300, False),
-       ("mismatch_200", 1500, 700, 40, True),
-       ("default", 640, 640, 512, True)])
+@pytest.mark.parametrize("case,M,N,B,edges", [
+    (c, 200, 150, 300, False) for c in sorted(WAVEFRONT_CASES)]
+    + [("mismatch_200", 1500, 700, 40, False),
+       ("default", 640, 640, 512, False)]
+    + [("mismatch_200", M, 50, 17, True) for M in (1, 31, 32, 33, 65)]
+    + [("n_mismatch", 40, 1, 17, True),
+       ("n_mismatch", 40, 3000, 17, True),
+       ("mismatch_200", 300, 200, 1, False),
+       ("n_mismatch", 300, 200, 17, True),
+       ("mismatch_200", 300, 28300, 2, False)])
 def test_wavefront_and_flat_backtrack_kernels_match_plain(
-        cuda_device, monkeypatch, case, M, N, B, smem):
-    """K6 and K7 against their plain versions; smem=False moves K6's lane
-    state into its global scratch; 1500 lanes stride over a 1024-thread
-    block; 640 x 640 x 512 is the search prefetch's shape."""
-    if not smem:
-        monkeypatch.setattr(nw_wavefront, "SMEM_BYTES_MAX", 0)
+        cuda_device, case, M, N, B, edges):
+    """K6 and K7 against their plain versions.  Band edges: M of 1, 31,
+    32, 33 and 65 rows (one band, a full one, a second of one row, a
+    third); N = 1; N = 3000 at M = 40, where the link between the two
+    bands' warps wraps its 128-column ring 23 times; 1500 rows over 6
+    rounds of the block's 8 warps; B of 1 and 17.
+    edges=True sets lanes of qlen 0, tlen 0, qlen = M with tlen = N, qlen
+    above M, tlen above N and tlen -2 (left of j = 0 the score still
+    follows the plain version).  640 x 640 x 512 is the search prefetch's
+    shape; D = 28 499 puts the row passed between the pair's last and
+    first warps in a global scratch instead of shared memory."""
     make_key, alphabet = WAVEFRONT_CASES[case]
     key = make_key()
     qs, ts = _pairs(random.Random(len(case) + M), B, M, N, alphabet)
@@ -584,6 +594,9 @@ def test_wavefront_and_flat_backtrack_kernels_match_plain(
     t4 = nw_batch.encode_padded(ts, B, N)
     qlen = np.array([len(q) for q in qs], dtype=np.int32)
     tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    if edges:
+        qlen[:6] = (0, len(qs[1]), M, M + 3, len(qs[4]), len(qs[5]))
+        tlen[:6] = (len(ts[0]), 0, N, len(ts[3]), N + 5, -2)
     args = [torch.from_numpy(a).to(cuda_device) for a in (q4, qlen, t4, tlen)]
     cuda_lib.reset_launches()
     got = nw_wavefront.build_forward(key)(*args)

@@ -54,10 +54,10 @@ def _schemes():
     }
 
 
-def _inputs(seed, B, M, N):
+def _inputs(seed, B, M, N, zero_lanes=False):
     """int8 codes with 0 (padding and ambiguous), 5 (ambiguous) and 15 (N)
     mixed in, ragged lengths including 1, half the targets near copies of
-    their query."""
+    their query; zero_lanes gives pair 3 qlen 0 and pair 1 tlen 0."""
     rng = np.random.default_rng(seed)
     alphabet = np.array([1, 2, 4, 8, 1, 2, 4, 8, 5, 15, 0], dtype=np.int8)
     qlen = rng.integers(1, M + 1, size=B).astype(np.int32)
@@ -76,6 +76,8 @@ def _inputs(seed, B, M, N):
     q4[2] = alphabet[rng.integers(0, 4, size=M)]
     qlen[2] = tlen[2] = min(M, N)
     t4[2, :min(M, N)] = q4[2, :min(M, N)]
+    if zero_lanes:
+        qlen[3], tlen[1] = 0, 0
     q4[np.arange(M)[None, :] >= qlen[:, None]] = 0
     t4[np.arange(N)[None, :] >= tlen[:, None]] = 0
     return q4, qlen, t4, tlen
@@ -90,14 +92,21 @@ def pallas_interpret(monkeypatch):
     return nw_pallas.build_forward
 
 
-@pytest.mark.parametrize("case,M,N,B", [
-    ("default", 20, 28, 8), ("mismatch_200", 20, 28, 8),
-    ("n_mismatch", 20, 28, 8), ("asym_ends", 20, 28, 8),
-    ("overflow", 20, 28, 8), ("mismatch_200", 64, 64, 16)])
-def test_wavefront_matches_pallas_and_xla(pallas_interpret, case, M, N, B):
+@pytest.mark.parametrize("case,M,N,B,zero_lanes", [
+    ("default", 20, 28, 8, False), ("mismatch_200", 20, 28, 8, False),
+    ("n_mismatch", 20, 28, 8, False), ("asym_ends", 20, 28, 8, False),
+    ("overflow", 20, 28, 8, False), ("mismatch_200", 64, 64, 16, False),
+    ("n_mismatch", 33, 40, 8, True), ("mismatch_200", 1, 20, 4, True),
+    ("asym_ends", 20, 1, 4, True)])
+def test_wavefront_matches_pallas_and_xla(pallas_interpret, case, M, N, B,
+                                          zero_lanes):
+    """Band edges of the card kernel (33 rows: a second band of one row;
+    one row; one column), each with a lane of qlen 0 and one of tlen 0.
+    The tlen-0 lane's score is h at (qlen - 1, -1), left of column 0: 0
+    unless a query N under n_mismatch makes it negative (-5 at 33 x 40)."""
     import jax.numpy as jnp
     key = _schemes()[case]
-    q4, qlen, t4, tlen = _inputs(M * 7 + N + len(case), B, M, N)
+    q4, qlen, t4, tlen = _inputs(M * 7 + N + len(case), B, M, N, zero_lanes)
     cuda_lib.reset_launches()
     s_t, o_t, d_t = nw_wavefront.build_forward(key)(
         *(torch.from_numpy(a) for a in (q4, qlen, t4, tlen)))
@@ -122,6 +131,9 @@ def test_wavefront_matches_pallas_and_xla(pallas_interpret, case, M, N, B):
     assert np.array_equal(np.asarray(d_x), d_t[:, :, :M].numpy())
     if case == "overflow":
         assert o_t.any() and not o_t.all()
+    if zero_lanes:
+        assert not d_t[:, 3].any() and not d_t[:, 1].any()
+        assert s_t[3] == 0 and not o_t[3] and not o_t[1]
 
     # K7's plain version against the flat backtrack, on either plane
     ops_t = nw_batch.backtrack_flat(d_t, torch.from_numpy(qlen),

@@ -178,10 +178,12 @@ def variant_sources(src: str, variants=VARIANTS, clock_edits=CLOCK_EDITS,
     return out
 
 
-def clock_summary(lib, B: int, probe: str = "k3") -> dict:
+def clock_summary(lib, B: int, probe: str = "k3", names: dict = None) -> dict:
     """Where the time of the clocked build's last launch went: the pair
     whose walk took longest, and means over the pairs.  The build keeps 8
-    int64 a pair in <probe>_probe, read back by <probe>_probe_read."""
+    int64 a pair in <probe>_probe, read back by <probe>_probe_read.  names
+    renames the fields for another kernel's probe (for example {"walk":
+    "pair"}) in every key of the result."""
     import numpy as np
     buf = np.zeros((B, 8), dtype=np.int64)
     read = getattr(lib, probe + "_probe_read")
@@ -191,7 +193,7 @@ def clock_summary(lib, B: int, probe: str = "k3") -> dict:
     k = int(np.argmax(walk))
     ns = max(int(g1[k] - g0[k]), 1)
     many = entries > 20
-    return {
+    out = {
         "slowest": {"walk_cycles": int(walk[k]),
                     "fetch_cycles": int(fetch[k]), "rounds": int(rounds[k]),
                     "entries": int(entries[k]), "walk_ns": ns,
@@ -207,6 +209,14 @@ def clock_summary(lib, B: int, probe: str = "k3") -> dict:
         "start_spread_ns": int(g0.max() - g0.min()),
         "span_ns": int(g1.max() - g0.min()),
         "sms": int(len(np.unique(buf[:, 7])))}
+
+    def renamed(key):
+        for old, new in (names or {}).items():
+            key = key.replace(old, new)
+        return key
+    return {renamed(k): ({renamed(f): x for f, x in v.items()}
+                         if isinstance(v, dict) else v)
+            for k, v in out.items()}
 
 
 def flush_l2(dev):

@@ -78,12 +78,11 @@
 // they filled half of one, and K2m took 1.5x as long (PERF.md, PR 5).
 // Alternatives weighed: lanes over columns with a warp max-plus scan of E
 // a row (the TPU's two-level scan, nw_pallas2.py:191-224) costs log2(32)
-// shuffle stages a cell where the striped rows need three shuffles; K6's
-// one block a pair (nw_wavefront.cu) puts a barrier on every diagonal and
-// a plane laid out by diagonal, unsuited to the b-fastest wire; row bands
-// pipelined over several warps of one pair would add warps at small B,
-// where the kernel is bound by latency, and were not built: K2 is 2 ms of
-// a search run's 0.18 s there (PERF.md, PR 5).
+// shuffle stages a cell where the striped rows need three shuffles; row
+// bands pipelined over several warps of one pair would add warps at small
+// B, where the kernel is bound by latency, and were not built here: K2 is
+// 2 ms of a search run's 0.18 s there (PERF.md).  K6 (nw_wavefront.cu)
+// runs that design on its diagonal-major plane.
 //
 // Resources (ptxas, sm_90a): __launch_bounds__(32 P, 32 / P) caps each
 // instantiation at 64 registers; they use 56-64, and K2m at P = 1

@@ -345,10 +345,11 @@ class BatchAligner:
     # host cell rate (see align_pairs)
     NATIVE_CELLS_LIMIT = 8_000_000
     # cells/s of each wire's device forward, as measured on an H100 80GB
-    # HBM3 at a 700 W power limit, B=512, M=N=640 (chip_smoke.py phase 2):
-    # K2 2.1e8 cells in 2.094 ms; K6 2.1e8 cells in 2.409 ms
+    # HBM3 at a 700 W power limit, B=512, M=N=640 (chip_smoke.py phase 2,
+    # tools/tune_wavefront.py): K2 2.1e8 cells in 2.094 ms; K6 2.1e8 cells
+    # in 0.803 ms
     ROW_WIRE_RATE = 1.00e11
-    CODES_WIRE_RATE = 8.70e10
+    CODES_WIRE_RATE = 2.61e11
 
     # adaptive host/device routing state, process-wide: EMA of the device
     # call's fixed cost and of the host C tier's measured cell rate

@@ -4,16 +4,19 @@ Counterpart of vsearch_tpu/ops/nw_pallas.py (renamed: the port has no
 Pallas), the forward the JAX package takes when the row-scan kernel's
 preconditions fail (nw_jax.py:388-409); in the port, a scoring scheme whose
 mismatch score lies outside int8 (ops/nw_batch.BatchAligner picks the
-wire).  A whole pair advances one anti-diagonal d = i + j per step: every
-cell of a diagonal depends only on the two diagonals before it.  Same cell
+wire).  Every cell of an anti-diagonal d = i + j depends only on the two
+diagonals before it, and the plane is laid out by diagonal.  Same cell
 semantics as ops/nw.py's oracle and the row-scan forward (K2); the
 direction plane is diagonal-major and holds the four direction bits only,
 with no run length, so its backtrack (nw_batch.backtrack_flat, K7) takes
 one move a step.
 
-CUDA tensors launch csrc/nw_wavefront.cu; CPU tensors take the plain
-version below, one vectorised diagonal over all (B, M) lanes per step, as
-the JAX package's XLA scan steps it (nw_jax.py:184-259).
+CUDA tensors launch csrc/nw_wavefront.cu: several warps a pair over 32-row
+bands, each step of a band one 32-byte run of a diagonal of the plane.
+CPU tensors take the plain version below, one vectorised diagonal over all
+(B, M) lanes per step, as the JAX package's XLA scan steps it
+(nw_jax.py:184-259).  Both take any lengths: a qlen above M, a tlen above
+N or a length of 0 or less gives what the XLA scan gives.
 """
 
 from __future__ import annotations
@@ -26,11 +29,6 @@ from . import cuda_lib
 from .nw import (DIR_EXTLEFT, DIR_EXTUP, DIR_LEFT, DIR_UP, SHRT_MAX,
                  ScoreScheme)
 
-# shared memory one block may opt in to on an H100 (227 KB), less the
-# kernel's static reduction slots: K6 keeps its lane state there when it
-# fits (32 bytes a lane, plus the pair's codes), else in a global scratch
-SMEM_BYTES_MAX = 232448 - 1024
-
 _argtypes_set = False
 
 
@@ -42,6 +40,8 @@ def _lib():
         lib.nw_wavefront_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p,
                                             p, p, p]
         lib.nw_wavefront_launch.restype = i
+        lib.nw_wavefront_scratch_bytes.argtypes = [i, i, i]
+        lib.nw_wavefront_scratch_bytes.restype = ctypes.c_longlong
         _argtypes_set = True
     return lib
 
@@ -93,14 +93,19 @@ def _forward(key: tuple, q4, qlen, t4, tlen):
     score = torch.empty(B, dtype=torch.int32, device=dev)
     over = torch.empty(B, dtype=torch.bool, device=dev)
     dirs = torch.empty((M + N - 1, B, Ms), dtype=torch.uint8, device=dev)
-    gstate = None
-    if 32 * M + M + N > SMEM_BYTES_MAX:
-        gstate = torch.empty((B, 2, M, 4), dtype=torch.int32, device=dev)
+    lib = _lib()
+    # the band row passed from a pair's last warp to its first lives in
+    # shared memory unless D is too long for it (about 28 000)
+    nbytes = lib.nw_wavefront_scratch_bytes(M, N, B)
+    if nbytes < 0:
+        raise RuntimeError("nw_wavefront: CUDA error sizing the launch")
+    wrap = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            if nbytes else None)
     params = (ctypes.c_int * 16)(*key, score_min)
-    rc = _lib().nw_wavefront_launch(
+    rc = lib.nw_wavefront_launch(
         q4.data_ptr(), qlen.data_ptr(), t4.data_ptr(), tlen.data_ptr(),
         M, N, B, Ms, params, score.data_ptr(), over.data_ptr(),
-        dirs.data_ptr(), None if gstate is None else gstate.data_ptr(),
+        dirs.data_ptr(), None if wrap is None else wrap.data_ptr(),
         cuda_lib.stream_ptr(dev))
     cuda_lib.check(rc, "nw_wavefront")
     cuda_lib.LAUNCHES["nw_wavefront"] += 1
