@@ -33,7 +33,8 @@ line):
    M=N=640), on a walk round's (the first 128 of them) and on the cluster
    round's top-1 pairs (B=512, M=N=512), each beside K2's time on the
    same pairs under the default scheme (K7 also right after a fresh K6
-   launch wrote its plane, ms_after_k6);
+   launch wrote its plane, ms_after_k6, beside its moves a lane and the
+   windows a lane that its counted build fetched on the same inputs);
 3. run usearch_global through the CLI on two small workloads, four
    option sets each (the fourth with --mismatch -200): on cuda as routed,
    on cuda with every walk round forced onto the device aligner, and on
@@ -96,6 +97,8 @@ INT8_TC_OPS = 1979e12
 INT32_OPS = 33.5e12
 # int32 operations of one K2 cell update (csrc/nw_rowscan.cu inner loop)
 NW_CELL_OPS = 20
+# pairs the counted K7 build (flat_windows) counts windows for
+COUNTED_PAIRS = 8192
 
 # the bench dataset (bench.py: DB_SIZE, N_QUERIES, SEQ_LEN)
 DB_SIZE = 100000
@@ -444,10 +447,30 @@ def write_family_workload(workdir: pathlib.Path, families=52, members=10,
     return db, q
 
 
+def counted_so():
+    """The counted build of csrc/nw_backtrack.cu: K7 as shipped, also
+    counting the windows each pair fetches (K7_COUNT_WINDOWS)."""
+    from vsearch_tpu_torch.ops import cuda_lib
+    return cuda_lib.BUILD_DIR / "libnw_backtrack_counted.so"
+
+
 def phase_build(gpu):
     from vsearch_tpu_torch.ops import cuda_lib
     t0 = time.perf_counter()
-    built = cuda_lib.build(force=True)
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    counted = subprocess.Popen(
+        [cuda_lib._nvcc()] + cuda_lib.NVCC_FLAGS
+        + ["-DK7_COUNT_WINDOWS=%d" % COUNTED_PAIRS, "-o", str(counted_so()),
+           str(cuda_lib.CSRC / "nw_backtrack.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        built = cuda_lib.build(force=True)
+    finally:
+        log, _ = counted.communicate()
+    require(counted.returncode == 0,
+            "nvcc failed for the counted K7 build:\n" + log)
+    built["nw_backtrack_counted"] = {
+        "seconds": time.perf_counter() - t0, "ptxas": log}
     total = time.perf_counter() - t0
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
@@ -764,17 +787,25 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
         lambda d: nw_batch.backtrack_flat(d, qlen, tlen), 5)
     plain_ms = timed(lambda: nw_batch.backtrack_flat_plain(d_k, qlen, tlen),
                      1)
-    steps = int((ops_k != 0).sum())
-    # data-dependent: one dirs byte a move on the walked paths, lengths,
-    # ops out
-    nbytes = steps + 2 * B * 4 + ops_k.numel() * 2
+    lane_steps = (ops_k != 0).sum(dim=0)
+    steps = int(lane_steps.sum())
+    windows = flat_windows(d_k, qlen, tlen, ops_p)
+    reads = flat_cells_read(ops_p, qlen, tlen)
+    # data-dependent: one dirs byte a cell on the walked paths (drains
+    # read none), lengths, ops out
+    nbytes = reads + 2 * B * 4 + ops_k.numel() * 2
     bound_ms, bound_by = bound(nbytes, steps * 10, INT32_OPS)
     out.append({"kernel": "nw_backtrack_flat" + tag,
-                "shape": {"B": B, "M": M, "N": N, "steps": steps},
+                "shape": {"B": B, "M": M, "N": N, "steps": steps,
+                          "reads": reads},
                 "ms": ms, "ms_after_k6": ms_after_k6, "plain_ms": plain_ms,
                 "library_ms": None,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "max_abs_err": err7, "launches": launches, "card": gpu})
+                "max_abs_err": err7, "max_steps": int(lane_steps.max()),
+                "mean_steps": steps / B,
+                "windows_max": int(windows.max()),
+                "windows_mean": float(windows.mean()),
+                "launches": launches, "card": gpu})
     emit(out[-1])
     del d_k
     torch.cuda.empty_cache()
@@ -1044,6 +1075,43 @@ def window_rounds(ops, qlen, tlen, span: int):
         i = i - np.where((op == 1) | (op == 2), cnt, 0)
         j = j - np.where((op == 1) | (op == 3), cnt, 0)
     return rounds
+
+
+def flat_cells_read(ops, qlen, tlen) -> int:
+    """Cells of the plane K7's walks read, from its flat ops wire: one a
+    move before a drain (cells_read, a plain code read as a count of 1)."""
+    import numpy as np
+    v = ops.cpu().numpy()
+    return int(cells_read(np.where(v != 0, v | 4, 0), qlen.cpu().numpy(),
+                          tlen.cpu().numpy()).sum())
+
+
+def flat_windows(dirs, qlen, tlen, ref):
+    """The windows each pair's K7 walk fetches on these inputs, as the
+    card counts them: the counted build (phase_build) launched once, its
+    ops checked equal to ref, the plain version's."""
+    import ctypes
+    import numpy as np
+    import torch
+    from vsearch_tpu_torch.ops import cuda_lib
+    D, B, Ms = dirs.shape
+    require(B <= COUNTED_PAIRS, "more pairs than the counted K7 build holds")
+    lib = ctypes.CDLL(str(counted_so()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nw_backtrack_flat_launch.argtypes = [p, p, p, i, i, i, p, p]
+    lib.nw_backtrack_flat_windows.argtypes = [p, i]
+    ops = torch.full((D + 1, B), 0x5555, dtype=torch.int16,
+                     device=dirs.device)
+    require(lib.nw_backtrack_flat_launch(
+        dirs.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), D, B, Ms,
+        ops.data_ptr(), cuda_lib.stream_ptr(dirs.device)) == 0,
+        "counted K7 launch")
+    torch.cuda.synchronize()
+    require(torch.equal(ops, ref), "counted K7 differs from the plain version")
+    windows = np.zeros(B, dtype=np.int32)
+    require(lib.nw_backtrack_flat_windows(windows.ctypes.data, B) == 0,
+            "nw_backtrack_flat_windows")
+    return windows
 
 
 def phase_allpairs_kernels(gpu, ap_path):
@@ -1794,10 +1862,10 @@ def main() -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     # the walks (K3, K5, K7): their times right after the forward that
-    # writes their planes, their entries a lane and K5's windows a lane as the
-    # host models them (window_rounds)
+    # writes their planes, their entries (K7: moves) a lane, and K7's
+    # windows a lane as its counted build fetched them
     walk_fields = ("ms_after_k2", "ms_after_k2m", "ms_after_k6", "max_steps",
-                   "mean_steps", "model_windows_max", "model_windows_mean")
+                   "mean_steps", "windows_max", "windows_mean")
     line = []
     for name, (src, rep) in sources.items():
         entry = {"name": name, "route": "cuda", "source": src,

@@ -22,6 +22,8 @@ from vsearch_tpu_torch.ops import (allpairs_dev, cuda_lib, nw_batch,
 from vsearch_tpu_torch.ops.nw import ScoreScheme
 from vsearch_tpu_torch.params import Parameters
 
+from .torch_helpers import longest_gap_run
+
 pytestmark = pytest.mark.cuda
 
 
@@ -613,3 +615,116 @@ def test_wavefront_and_flat_backtrack_kernels_match_plain(
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["nw_backtrack_flat"] == 1
     assert _same(ops_ref, ops_got)
+
+
+def _flat_backtrack_case(case, rng):
+    """(pairs, M, N, lengths K7 walks or None for the pairs' own) of a
+    K7-only case."""
+    if case in ("reject", "gap_chains", "len1"):
+        return _backtrack_case(case, rng)
+    if case == "iupac":
+        # ambiguous codes score 0: paths leave M runs through cells with
+        # LEFT but not UP set, which end a run of M moves
+        qs, ts = _pairs(rng, 64, 300, 300, "ACGTNRYSWKMBDHV")
+        return qs, ts, 300, 300, None
+    if case == "drains":
+        # short queries against long targets and the reverse, and lanes
+        # with one length 0 whose whole walk is a drain
+        qs = [_random_seq(rng, 12), _random_seq(rng, 600), b"A", b"A",
+              _random_seq(rng, 300), _random_seq(rng, 9)]
+        ts = [_random_seq(rng, 600), _random_seq(rng, 20), b"C", b"C",
+              _random_seq(rng, 280), _random_seq(rng, 500)]
+        lens = ([12, 600, 0, 600, 300, 9], [600, 20, 600, 0, 280, 0])
+        return qs, ts, 600, 600, lens
+    # past_plane: lengths above M (some above the lane stride Ms = 384)
+    # and above N, whose first cells lie past the plane's last diagonal or
+    # row and are read at the plain version's clamped addresses; walks
+    # capped at S = M + N
+    qs, ts = [], []
+    for _ in range(8):
+        q = _random_seq(rng, 300)
+        qs.append(q)
+        ts.append(q[:140] + _random_seq(rng, 140))
+    lens = ([303, 400, 4300, 310, 5, 300, 150, 299],
+            [285, 290, 4210, 50, 400, 280, 600, 279])
+    return qs, ts, 300, 280, lens
+
+
+# K7-only cases: K3's reject, gap_chains and len1 pairs, drains with
+# lanes of length 0, lengths past the plane, IUPAC pairs, and a plane of
+# lane stride M (not a multiple of 16) at an odd address, which K7 reads
+# a byte a cell
+FLAT_CASES = ["reject", "gap_chains", "drains", "len1", "past_plane",
+              "iupac", "unaligned"]
+
+
+@pytest.mark.parametrize("case", FLAT_CASES)
+def test_flat_backtrack_kernel_matches_plain(cuda_device, case):
+    """K7 alone against its plain version on planes from K6's plain
+    version under --mismatch -200: paths that need many windows, gap
+    chains crossing a window's edge on either side, drains, single-
+    nucleotide pairs, clamped reads past the plane, and a plane that
+    takes no 16-byte loads."""
+    key = _default_key()
+    key = key[:1] + (-200,) + key[2:]
+    qs, ts, M, N, lens = _flat_backtrack_case(
+        "gap_chains" if case == "unaligned" else case, random.Random(case))
+    B = len(qs)
+    q4 = nw_batch.encode_padded(qs, B, M)
+    t4 = nw_batch.encode_padded(ts, B, N)
+    qlen = np.array([len(q) for q in qs], dtype=np.int32)
+    tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q4, qlen, t4, tlen)]
+    _, _, dirs = nw_wavefront.forward_plain(
+        key, ScoreScheme(*key[:14], bool(key[14])).score_min(), *args)
+    qlen, tlen = args[1], args[3]
+    if lens is not None:
+        qlen, tlen = (torch.tensor(v, dtype=torch.int32, device=cuda_device)
+                      for v in lens)
+    ref = nw_batch.backtrack_flat_plain(dirs, qlen, tlen)
+    if case == "unaligned":
+        D = dirs.shape[0]
+        buf = torch.empty(D * B * M + 1, dtype=torch.uint8,
+                          device=cuda_device)
+        packed = buf[1:].view(D, B, M)
+        packed.copy_(dirs[:, :, :M])
+        assert packed.data_ptr() % 16 and M % 16
+        dirs = packed
+        assert _same(ref, nw_batch.backtrack_flat_plain(dirs, qlen, tlen))
+    cuda_lib.reset_launches()
+    got = nw_batch.backtrack_flat(dirs, qlen, tlen)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["nw_backtrack_flat"] == 1
+    assert _same(ref, got)
+    moves = (ref != 0).sum(dim=0)
+    if case == "reject":
+        assert int(moves.max()) > 300
+    if case == "gap_chains":
+        # a run of one gap op longer than the 32 diagonals K7 walks in a
+        # window before it fetches the next
+        assert longest_gap_run(ref) > 32
+    if case == "drains":
+        assert int(moves[2]) == 600 and int(moves[3]) == 600
+    if case == "past_plane":
+        # a walk cut at S
+        assert bool((ref[-1] != 0).any())
+    if case == "iupac":
+        assert _left_ends_run(dirs, ref, qlen, tlen)
+
+
+def _left_ends_run(dirs, ops, qlen, tlen) -> bool:
+    """Does some path take I after an M (or at its start) at a cell with
+    LEFT but not UP set?"""
+    d, o = dirs.cpu(), ops.cpu().tolist()
+    D, _, Ms = d.shape
+    for b, (i, j) in enumerate(zip(qlen.tolist(), tlen.tolist())):
+        i, j, prev = i - 1, j - 1, 1
+        for t in range(len(o)):
+            op = o[t][b]
+            if op == 0 or i < 0 or j < 0:
+                break
+            w = int(d[min(i + j, D - 1), b, min(i, Ms - 1)])
+            if prev == 1 and w & 3 == 2:
+                return True
+            i, j, prev = i - (op != 3), j - (op != 2), op
+    return False

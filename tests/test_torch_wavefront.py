@@ -28,6 +28,7 @@ from .conftest import run_ours
 from .test_device_search_parity import _write_workload
 from .test_torch_cluster import SETUP, families  # noqa: F401 (fixture)
 from .test_torch_search import run_port
+from .torch_helpers import longest_gap_run
 
 
 def _default_key():
@@ -145,6 +146,98 @@ def test_wavefront_matches_pallas_and_xla(pallas_interpret, case, M, N, B,
         assert np.array_equal(np.asarray(ops_x), ops_t.numpy())
     assert cuda_lib.PLAIN_CALLS["nw_rowscan"] == 0
     assert not any(cuda_lib.LAUNCHES.values())
+
+
+def _walk_case(case, rng):
+    """(q4, t4 int8 codes, the pairs' lengths, the lengths the flat
+    backtrack walks) of an adversarial pair set at CPU sizes: reject-like
+    random pairs, one gap of 1..40 a pair (chains of one gap op longer
+    than the 32 diagonals K7 walks in a window before it fetches the
+    next), drains (short against long, lanes of length 0), single-
+    nucleotide pairs, and lengths past the plane."""
+    acgt = np.array([1, 2, 4, 8], dtype=np.int8)
+
+    def seq(n):
+        return acgt[rng.integers(0, 4, size=n)]
+    qs, ts, walk = [], [], None
+    if case == "reject":
+        qs = [seq(int(rng.integers(140, 161))) for _ in range(8)]
+        ts = [seq(int(rng.integers(140, 161))) for _ in range(8)]
+        M = N = 160
+    elif case == "gap_chains":
+        for g in range(1, 41, 3):
+            q = seq(100)
+            at = int(rng.integers(20, 60))
+            qs += [q, q]
+            ts += [np.concatenate([q[:at], q[at + g:]]),
+                   np.concatenate([q[:at], seq(g), q[at:]])]
+        M, N = 100, 140
+    elif case == "drains":
+        qs = [seq(12), seq(150), seq(1), seq(1), seq(90), seq(9)]
+        ts = [seq(150), seq(20), seq(1), seq(1), seq(80), seq(120)]
+        M = N = 150
+        walk = ([12, 150, 0, 150, 90, 9], [150, 20, 150, 0, 80, 0])
+    elif case == "len1":
+        for k in range(16):
+            a, b = seq(1), seq(int(rng.integers(1, 41)))
+            qs.append(a if k % 2 else b)
+            ts.append(b if k % 2 else a)
+        M = N = 40
+    else:
+        # past_plane: lengths above M and N (one of them above the lane
+        # stride, 128); the walks start past the plane's last diagonal
+        for _ in range(6):
+            q = seq(100)
+            qs.append(q)
+            ts.append(np.concatenate([q[:50], seq(40)]))
+        M, N = 100, 90
+        walk = ([103, 140, 600, 110, 5, 100], [95, 91, 500, 20, 300, 89])
+    B = len(qs)
+    q4 = np.zeros((B, M), dtype=np.int8)
+    t4 = np.zeros((B, N), dtype=np.int8)
+    for b, (q, t) in enumerate(zip(qs, ts)):
+        q4[b, :q.size] = q
+        t4[b, :t.size] = t
+    qlen = np.array([q.size for q in qs], dtype=np.int32)
+    tlen = np.array([t.size for t in ts], dtype=np.int32)
+    if walk is None:
+        walk = (qlen, tlen)
+    return q4, t4, qlen, tlen, tuple(np.asarray(w, dtype=np.int32)
+                                     for w in walk)
+
+
+@pytest.mark.parametrize("case", ["reject", "gap_chains", "drains", "len1",
+                                  "past_plane"])
+def test_flat_backtrack_plain_matches_xla(case):
+    """The oracle K7 is held to on the card, backtrack_flat_plain, against
+    the XLA twin's flat backtrack on the twin's own plane (lane stride M)
+    and on that plane padded to K6's lane stride, under --mismatch -200,
+    on the adversarial pair sets of the card tests at CPU sizes."""
+    import jax.numpy as jnp
+    key = _schemes()["mismatch_200"]
+    q4, t4, qlen, tlen, (wq, wt) = _walk_case(
+        case, np.random.default_rng(len(case)))
+    M, N = q4.shape[1], t4.shape[1]
+    fwd_x, bt_x = nw_jax._build_kernels(key, M, N, Bp=-1)
+    d_x = np.array(fwd_x(*(jnp.asarray(a) for a in (
+        q4.astype(np.int32), qlen, t4.astype(np.int32), tlen)))[2])
+    Ms = nw_wavefront.lane_stride(M)
+    padded = np.zeros(d_x.shape[:2] + (Ms,), dtype=np.uint8)
+    padded[:, :, :M] = d_x
+    for d in (d_x, padded):
+        ops = nw_batch.backtrack_flat_plain(
+            torch.from_numpy(d), torch.from_numpy(wq), torch.from_numpy(wt))
+        ops_x = bt_x(jnp.asarray(d), jnp.asarray(wq), jnp.asarray(wt))
+        assert np.array_equal(np.asarray(ops_x), ops.numpy())
+    moves = (ops != 0).sum(dim=0)
+    if case == "reject":
+        assert int(moves.max()) > 200
+    if case == "gap_chains":
+        assert longest_gap_run(ops) > 32
+    if case == "drains":
+        assert int(moves[2]) == 150 and int(moves[3]) == 150
+    if case == "past_plane":
+        assert bool((ops[-1] != 0).any())
 
 
 def test_aligner_codes_wire_matches_oracle(monkeypatch):
