@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Four main paths: usearch_global (kernels K1, K2, K3), greedy
-clustering (K4, K2, K3), allpairs_global (K2m, K5) and usearch_global
+Five main paths: usearch_global (kernels K1, K2, K3), greedy
+clustering (K4, K2, K3), allpairs_global (K2m, K5), usearch_global
 under --mismatch -200, a mismatch score outside int8 that routes the
-alignments to the wavefront forward and the flat backtrack (K1, K6, K7).
+alignments to the wavefront forward and the flat backtrack (K1, K6, K7),
+and de novo chimera detection (K4, and K2, K3 where its alignment waves
+pass the host crossover; its parity runs also drive uchime_ref's K1 and
+K6, K7 under --mismatch -200).
 Phases (any failure ends the run with a non-zero exit and no result
 line):
 
@@ -48,8 +51,15 @@ line):
    launched on the stats pipeline's six (one with --match 220, where
    some pairs overflow the 16-bit forward, one with --minsl 0.8, where
    the unaligned gate filters pairs) and not on --acceptall (the generic
-   path).  The --mismatch -200 runs must launch K6 and K7 and no
-   K2, K3 or plain version; every other run no K6 or K7;
+   path); then the five chimera verbs on a seeded 800-sequence
+   workload (tests/chimera_workload.py; chimeras_denovo also with
+   tests/data/chimeras_long.fasta
+   appended), uchime_ref against 520 references and uchime3_denovo
+   --mismatch -200, with the de novo device tier from the 16th accepted
+   reference on, on cuda with every alignment call on the device aligner
+   and on cpu, every output byte-equal, each cuda run launching K4 (K1
+   for uchime_ref).  The --mismatch -200 runs must launch K6 and K7 and
+   no K2, K3 or plain version; every other run no K6 or K7;
 4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
    sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
    --maxrejects 32, wordlength 8) through the CLI, one warm-up then one
@@ -67,7 +77,15 @@ line):
    pipeline's pair counts read around it, then the same run under
    torch.profiler.  usearch_global under --mismatch -200: the bench
    dataset again, one warm-up, one timed run with the launch counts, one
-   traced run.  Before each full-width run the aligner's process-wide
+   traced run.  Chimera: tools/bench_scale.py's uchime3_denovo_50k cell
+   (12 500 families x 4 members x 400 nt, seed 17) through
+   --uchime3_denovo --chimeras --nonchimeras --borderline, one timed run
+   with the launch counts read around it (every input in exactly one
+   output), then the same run under torch.profiler with K4's device ms a
+   launch, then K4 against its plain version on that run's largest chunk
+   and K2 and K3 on the timed run's largest alignment wave (its largest
+   alignment call, sent to the card, where no wave passed the
+   crossover).  Before each full-width run the aligner's process-wide
    routing estimates are set back to where a fresh CLI process starts, and
    the host/device crossover (DP cells) and the walk rounds that reached
    the device forward are printed;
@@ -123,6 +141,12 @@ AP_SEQS = 2000
 AP_LEN = 400
 AP_SEED = 17
 AP_ARGS = ["--id", "0.5", "--threads", "1", "--quiet"]
+
+# the chimera cell: tools/bench_scale.py's uchime3_denovo_50k
+# (gen_amp_families, 12 500 families x 4 members x 400 nt), generated here
+# from its own seed as the clustering cell is
+CHIM_FAMILIES = 12500
+CHIM_ARGS = ["--threads", "1", "--quiet"]
 
 # a mismatch score outside int8: the aligner's codes wire (K6 + K7)
 MISMATCH_200 = ["--mismatch", "-200"]
@@ -445,6 +469,12 @@ def write_family_workload(workdir: pathlib.Path, families=52, members=10,
         for i in range(n_queries):
             fh.write(">fq%d\n%s\n" % (i, mutate(rng.choice(seqs), 0.05)))
     return db, q
+
+
+def fasta_heads(path: pathlib.Path):
+    """Headers of a FASTA file (wrapped or not), without the '>'."""
+    return [ln[1:] for ln in path.read_bytes().split(b"\n")
+            if ln.startswith(b">")]
 
 
 def counted_so():
@@ -892,6 +922,49 @@ def cluster_prefetch_args(params, g, qseqs, klists, Kbits):
     return args, live, idx, queries
 
 
+def ranked_record(gpu, name: str, Kbits, bits, rank, nnz: int,
+                  shape: dict) -> dict:
+    """K4 on one chunk's inputs (query bits Kbits, the index's bits, maybe
+    a column prefix at the index's row stride, and the position ranks)
+    against its plain version, every occupied position keyed, timed beside
+    the plain version and the library product, with its bound from the
+    chunk's nnz query k-mers."""
+    import torch
+    from vsearch_tpu_torch.ops import cuda_lib, score_dense
+    qp = Kbits.shape[0]
+    V, words = bits.shape
+    occupied = int((rank < score_dense.RANK_MAX).sum())
+    cuda_lib.reset_launches()
+    got = score_dense.ranked_keys(Kbits, bits, rank)
+    ref = score_dense.ranked_keys_plain(Kbits, bits, rank)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    require(err == 0, "K4 differs from its plain version (%s)" % name)
+    require(int((got >= 0).sum()) == qp * occupied,
+            "K4 keys of empty positions (%s)" % name)
+    del ref
+    launches = cuda_lib.LAUNCHES["score_ranked"]
+    ms = timed(lambda: score_dense.ranked_keys(Kbits, bits, rank), 20)
+    plain_ms = timed(lambda: score_dense.ranked_keys_plain(
+        Kbits, bits, rank), 1)
+    counts = score_dense.counts_or_keys(Kbits, bits, 0, False)
+    library_ms = int_mm_yardstick(Kbits, bits, counts, "K4 (%s)" % name)
+    del counts
+    k4_bytes = (Kbits.numel() + bits.numel() + rank.numel()
+                + got.numel()) * 4
+    bound_ms, bound_by = bound(k4_bytes, 2 * nnz * words * 32, INT8_TC_OPS)
+    rec = {"kernel": name,
+           "shape": dict({"qp": qp, "V": V, "words": words,
+                          "occupied": occupied, "ids": nnz}, **shape),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+           "launches": launches, "card": gpu}
+    emit(rec)
+    del got
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_cluster_kernels(gpu, amp_path):
     """K4 at the full clustering width and on the filled prefix, then K2
     and K3 at the cluster prefetch's shape, on inputs from the amp100k
@@ -903,82 +976,25 @@ def phase_cluster_kernels(gpu, amp_path):
     import torch
     from vsearch_tpu_torch import device
     from vsearch_tpu_torch.core.cluster import ClusterEngine
-    from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_rowscan
-    from vsearch_tpu_torch.ops import score_dense
+    from vsearch_tpu_torch.ops import nw_batch, nw_rowscan
     from vsearch_tpu_torch.ops.nw import ScoreScheme
 
     dev = device.select("cuda")
     params, g, qseqs, klists, Kbits = cluster_round(amp_path)
-    n = g.n
-    qp = len(klists)
-    V = g.hashsize
-    bits = g.bits[:V]
+    bits = g.bits[:g.hashsize]
     rank = g._ranks()
     out = {}
 
-    cuda_lib.reset_launches()
-    got = score_dense.ranked_keys(Kbits, bits, rank)
-    ref = score_dense.ranked_keys_plain(Kbits, bits, rank)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, ref)
-    require(err == 0, "K4 differs from its plain version")
-    require(int((got >= 0).sum()) == qp * n, "K4 keys of empty positions")
-    del ref
-    launches = cuda_lib.LAUNCHES["score_ranked"]
-    ms = timed(lambda: score_dense.ranked_keys(Kbits, bits, rank), 20)
-    plain_ms = timed(lambda: score_dense.ranked_keys_plain(
-        Kbits, bits, rank), 1)
-    counts = score_dense.counts_or_keys(Kbits, bits, 0, False)
-    library_ms = int_mm_yardstick(Kbits, bits, counts, "K4")
-    del counts
     nnz = int(sum(k.size for k in klists))
-    n_cols = g.words * 32
-    k4_bytes = (Kbits.numel() + bits.numel() + rank.numel()
-                + got.numel()) * 4
-    bound_ms, bound_by = bound(k4_bytes, 2 * nnz * n_cols, INT8_TC_OPS)
-    out["score_ranked"] = {
-        "kernel": "score_ranked",
-        "shape": {"qp": qp, "V": V, "words": g.words, "occupied": n,
-                  "ids": nnz},
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-        "launches": launches, "card": gpu}
-    emit(out["score_ranked"])
-    del got
-    torch.cuda.empty_cache()
-
+    out["score_ranked"] = ranked_record(gpu, "score_ranked", Kbits, bits,
+                                        rank, nnz, {})
     # K4 as the cell's top-k runs it at this occupancy: on the filled
     # prefix of whole 4096-position blocks (GrowingDeviceKmerIndex
     # .topk_dispatch), a column prefix of the same matrix
     used = g.scan_words()
-    bits_p, rank_p = bits[:, :used], rank[:used * 32]
-    cuda_lib.reset_launches()
-    got = score_dense.ranked_keys(Kbits, bits_p, rank_p)
-    ref = score_dense.ranked_keys_plain(Kbits, bits_p, rank_p)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, ref)
-    require(err == 0, "K4 differs from its plain version on the prefix")
-    require(int((got >= 0).sum()) == qp * n, "K4 keys of empty positions")
-    del ref
-    launches = cuda_lib.LAUNCHES["score_ranked"]
-    ms = timed(lambda: score_dense.ranked_keys(Kbits, bits_p, rank_p), 20)
-    plain_ms = timed(lambda: score_dense.ranked_keys_plain(
-        Kbits, bits_p, rank_p), 1)
-    counts = score_dense.counts_or_keys(Kbits, bits_p, 0, False)
-    library_ms = int_mm_yardstick(Kbits, bits_p, counts, "K4 (prefix)")
-    del counts
-    k4_bytes = (Kbits.numel() + V * used + rank_p.numel() + got.numel()) * 4
-    bound_ms, bound_by = bound(k4_bytes, 2 * nnz * used * 32, INT8_TC_OPS)
-    out["score_ranked_prefix"] = {
-        "kernel": "score_ranked_prefix",
-        "shape": {"qp": qp, "V": V, "words": used, "row_stride": g.words,
-                  "occupied": n, "ids": nnz},
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-        "launches": launches, "card": gpu}
-    emit(out["score_ranked_prefix"])
-    del got
-    torch.cuda.empty_cache()
+    out["score_ranked_prefix"] = ranked_record(
+        gpu, "score_ranked_prefix", Kbits, bits[:, :used],
+        rank[:used * 32], nnz, {"row_stride": g.words})
 
     # the prefetch's forward inputs: compact_gather's lanes and gathers
     R = ClusterEngine.PREFETCH_LANES
@@ -1308,19 +1324,81 @@ class walk_round_k2:
         nw_batch.BatchAligner._dispatch = self._orig
 
 
-class ranked_words:
-    """Counts K4's launches (launches) and the packed words they scan
-    (words), read at score_dense.ranked_keys."""
+class largest_wave:
+    """Keeps the forward inputs of the largest alignment wave (B x M x N)
+    that BatchAligner._dispatch sends to the card (args, None if none
+    did), and the pairs of the largest alignment call by DP cells on
+    whichever tier the router sent it (call, None if none was made)."""
 
     def __enter__(self):
+        from vsearch_tpu_torch.ops import nw_batch
+        self.args = self.call = None
+        self._cells = 0
+        aligner = nw_batch.BatchAligner
+        self._orig = dispatch = aligner._dispatch
+        self._orig_align = align = aligner.align_pairs
+
+        def spied(this, qseqs, tseqs):
+            fwd = this._forward
+
+            def keep(*args):
+                size = args[0].numel() * args[3].shape[0]
+                if self.args is None or size > self._size:
+                    self.args, self._size = args, size
+                return fwd(*args)
+
+            this._forward = keep
+            try:
+                return dispatch(this, qseqs, tseqs)
+            finally:
+                this._forward = fwd
+
+        def seen(this, qseqs, tseqs):
+            cells = sum(len(q) * len(t) for q, t in zip(qseqs, tseqs))
+            if cells > self._cells:
+                self.call, self._cells = (list(qseqs), list(tseqs)), cells
+            return align(this, qseqs, tseqs)
+
+        aligner._dispatch = spied
+        aligner.align_pairs = seen
+        return self
+
+    def __exit__(self, *exc):
+        from vsearch_tpu_torch.ops import nw_batch
+        nw_batch.BatchAligner._dispatch = self._orig
+        nw_batch.BatchAligner.align_pairs = self._orig_align
+
+
+class ranked_words:
+    """Counts K4's launches (launches) and the packed words they scan
+    (words), read at score_dense.ranked_keys.  With keep, also keeps a copy
+    of the inputs (Kbits, bits, rank) of the largest launch by query rows
+    x words scanned (largest), bits a column prefix at the index's row
+    stride as the launch read it."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+
+    def __enter__(self):
+        import torch
         from vsearch_tpu_torch.ops import score_dense
         self.launches = self.words = 0
+        self.largest, self._size = None, 0
         self._orig = ranked_keys = score_dense.ranked_keys
 
         def counted(Kbits, bits, rank):
             if bits.is_cuda:
                 self.launches += 1
                 self.words += bits.shape[1]
+                size = Kbits.shape[0] * bits.shape[1]
+                if self.keep and size > self._size:
+                    self.largest = None
+                    wide = torch.empty((bits.shape[0], bits.stride(0)),
+                                       dtype=bits.dtype, device=bits.device)
+                    prefix = wide[:, :bits.shape[1]]
+                    prefix.copy_(bits)
+                    self.largest = (Kbits.clone(), prefix, rank.clone())
+                    self._size = size
             return ranked_keys(Kbits, bits, rank)
 
         score_dense.ranked_keys = counted
@@ -1565,6 +1643,204 @@ def phase_allpairs_parity(gpu):
                 "cuda and cpu allpairs outputs differ (%s)" % name)
         emit({"phase": "allpairs_parity", "options": name, "equal": True,
               "bytes": [len(b) for b in outs["cuda"]], "card": gpu})
+
+
+def phase_chimera_parity(gpu):
+    """The five chimera verbs on the seeded chimera workload (800
+    sequences; chimeras_denovo also with tests/data/chimeras_long.fasta
+    appended), uchime_ref against its 520-sequence DB and
+    --uchime3_denovo --mismatch -200, with the de novo device tier from
+    the 16th accepted reference on: after a host round of 128 queries
+    the growing index scores rounds of 128, 512 and 32 queries, the 512
+    one in several K4 chunks, resolved one round deep.  Each case runs
+    on cuda with every alignment call forced onto the device aligner
+    (crossover 0) and on cpu (the plain K4/K1, every alignment on the
+    host C tier), every output byte-equal.  Each cuda run must launch K4 (de
+    novo) or K1 (uchime_ref) and K2 and K3 (K6 and K7 and no K2 or K3
+    under --mismatch -200), and no plain version."""
+    from tests.chimera_workload import write_ref_workload
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.core.chimera import ChimeraEngine
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch
+    d = WORK / "chparity"
+    d.mkdir(parents=True, exist_ok=True)
+    fa, q, db = write_ref_workload(d)
+    long_fa = d / "long.fa"
+    long_fa.write_bytes(fa.read_bytes() + (
+        REPO / "tests" / "data" / "chimeras_long.fasta").read_bytes())
+    uchime = ("uchimeout", "uchimealns", "chimeras", "nonchimeras",
+              "borderline")
+    longouts = ("alnout", "tabbedout", "chimeras", "nonchimeras")
+    cases = {"uchime_denovo": (["--uchime_denovo", str(fa)], uchime),
+             "uchime2_denovo": (["--uchime2_denovo", str(fa)], uchime),
+             "uchime3_denovo": (["--uchime3_denovo", str(fa)], uchime),
+             "chimeras_denovo": (["--chimeras_denovo", str(fa)], longouts),
+             "chimeras_denovo_long": (["--chimeras_denovo", str(long_fa)],
+                                      longouts),
+             "uchime_ref": (["--uchime_ref", str(q), "--db", str(db)],
+                            uchime),
+             "uchime3_denovo_mm200": (["--uchime3_denovo", str(fa)]
+                                      + MISMATCH_200, uchime)}
+    aligner = nw_batch.BatchAligner
+    crossover = aligner._native_cells_crossover
+    saved = ChimeraEngine.DEVICE_MIN
+    ChimeraEngine.DEVICE_MIN = 16
+    try:
+        for name, (args, outs) in cases.items():
+            codes = "--mismatch" in args
+            scoring = "score_dense" if "--uchime_ref" in args \
+                else "score_ranked"
+            required = (scoring,) + (CODES_WIRE if codes else ROW_WIRE)
+            got = {}
+            for run in ("cuda", "cpu"):
+                aligner._native_cells_crossover = (
+                    (lambda self: 0) if run == "cuda"
+                    else (lambda self: float("inf")))
+                files = [str(d / ("%s.%s.%s" % (name, run, o)))
+                         for o in outs]
+                cuda_lib.reset_launches()
+                with walk_round_k2() as walk:
+                    rc = cli.main(args + [x for o, f in zip(outs, files)
+                                          for x in ("--" + o, f)]
+                                  + CHIM_ARGS, device=run)
+                require(rc == 0, "%s failed (%s)" % (args[0], run))
+                got[run] = [pathlib.Path(f).read_bytes() for f in files]
+                if run == "cpu":
+                    continue
+                launches = dict(cuda_lib.LAUNCHES)
+                require(all(launches[k] > 0 for k in required),
+                        "a kernel of the chimera path did not launch (%s)"
+                        % name)
+                require_wire(launches, codes, "chimera " + name)
+                require(not any(cuda_lib.PLAIN_CALLS.values()),
+                        "a plain version ran on the card (%s)" % name)
+                emit({"phase": "chimera_parity_launches", "options": name,
+                      "launches": launches,
+                      "nw_rowscan_walk_rounds": walk.count,
+                      "nw_wavefront_walk_rounds": walk.count_k6,
+                      "card": gpu})
+            require(got["cuda"] == got["cpu"],
+                    "cuda and cpu chimera outputs differ (%s)" % name)
+            nonchim = got["cuda"][outs.index("nonchimeras")]
+            require(nonchim.count(b">") > 0,
+                    "no non-chimeras (%s)" % name)
+            emit({"phase": "chimera_parity", "options": name, "equal": True,
+                  "bytes": dict(zip(outs, map(len, got["cuda"]))),
+                  "card": gpu})
+    finally:
+        ChimeraEngine.DEVICE_MIN = saved
+        aligner._native_cells_crossover = crossover
+
+
+def phase_chimera_full(gpu, chim_path):
+    """The chimera cell: tools/bench_scale.py's uchime3_denovo_50k shape
+    through --uchime3_denovo --chimeras --nonchimeras --borderline with
+    the production DEVICE_MIN, timed once with the launches read around
+    it, then the same run under torch.profiler with K4's device ms a
+    launch.  Both print the host's time by pipeline phase.  K4 is then held
+    against its plain version on the largest chunk of the traced run
+    (record "score_ranked_chimera"), K2 and K3 on the largest alignment
+    wave the timed run sent to the card, or its largest alignment call
+    sent there afterwards where the router kept every call on the host
+    (records "nw_rowscan_chimera" and "nw_backtrack_chimera").  Returns
+    (launches, records)."""
+    import torch
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops import cuda_lib
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
+    from vsearch_tpu_torch.utils import phasetimer
+    n_seqs = 4 * CHIM_FAMILIES
+    argv = ["--uchime3_denovo", str(chim_path)] + CHIM_ARGS
+    outs = ("chimeras", "nonchimeras", "borderline")
+
+    def run(tag):
+        fresh_router(argv)
+        t0 = time.perf_counter()
+        rc = cli.main(argv + [x for o in outs for x in
+                              ("--" + o, str(WORK / ("%s.%s" % (tag, o))))],
+                      device="cuda")
+        torch.cuda.synchronize()
+        require(rc == 0, "uchime3_denovo failed")
+        return time.perf_counter() - t0
+
+    start_crossover = fresh_router(argv)
+    phasetimer.ENABLED = True
+    phasetimer.reset()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    with walk_round_k2() as walk, largest_wave() as wave:
+        elapsed = run("chimera")
+    launches = dict(cuda_lib.LAUNCHES)
+    host_phase_s = dict(phasetimer.acc)
+    end_crossover = crossover(argv)
+    require(not any(cuda_lib.PLAIN_CALLS.values()),
+            "a plain version ran on the chimera path")
+    require(launches["score_ranked"] > 0,
+            "K4 was not launched on the chimera path")
+    require_wire(launches, False, "chimera_full")
+    heads = {o: fasta_heads(WORK / ("chimera.%s" % o)) for o in outs}
+    every = sorted(h for hs in heads.values() for h in hs)
+    require(every == sorted(fasta_heads(chim_path)),
+            "the outputs do not hold each input once")
+    require(len(every) == n_seqs, "the outputs hold %d records"
+            % len(every))
+    emit({"phase": "chimera_full", "sequences": n_seqs,
+          "seq_len": AMP_LEN, "seconds": elapsed,
+          "sequences_per_s": n_seqs / elapsed,
+          "records": {o: len(h) for o, h in heads.items()},
+          "launches": launches,
+          "nw_rowscan_walk_rounds": walk.count,
+          "nw_wavefront_walk_rounds": walk.count_k6,
+          "crossover_cells_start": start_crossover,
+          "crossover_cells_end": end_crossover,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "host_phase_s": host_phase_s, "card": gpu})
+    phasetimer.reset()
+    k4_name = "score_kernel<2>"              # EPI_RANK_KEY
+    with ranked_words(keep=True) as scanned:
+        traced = trace(lambda: run("chimera_traced"),
+                       match=(k4_name, "nw_rowscan", "nw_backtrack"))
+    phasetimer.ENABLED = False
+    # the device tier's rounds follow from the accepted references alone,
+    # not from the router: the traced run makes the timed run's K4 launches
+    require(scanned.launches == launches["score_ranked"],
+            "the traced run made %d K4 launches, the timed run %d"
+            % (scanned.launches, launches["score_ranked"]))
+    k4 = traced["device_ms_matching"][k4_name]
+    emit(dict({"phase": "chimera_full_traced"}, **traced,
+              score_ranked_ms=k4, score_ranked_launches=scanned.launches,
+              score_ranked_ms_per_launch=k4 / max(1, scanned.launches),
+              score_ranked_mean_words=scanned.words
+              / max(1, scanned.launches),
+              host_phase_s=dict(phasetimer.acc), card=gpu))
+    # K4 on the run's largest chunk (query rows x words scanned), at the
+    # index's row stride
+    Kbits, bits, rank = scanned.largest
+    del scanned
+    shifts = torch.arange(32, dtype=torch.int32, device=Kbits.device)
+    nnz = int(((Kbits[:, :, None] >> shifts) & 1).sum())
+    records = [ranked_record(gpu, "score_ranked_chimera", Kbits, bits, rank,
+                             nnz, {"row_stride": bits.stride(0)})]
+    del Kbits, bits, rank
+    torch.cuda.empty_cache()
+    # K2 and K3 on the timed run's largest wave on the card; where the
+    # router sent every call to the host, on its largest alignment call,
+    # sent to the card here
+    scheme = ScoreScheme.from_params(cli.parse_args(argv))
+    aligner = BatchAligner(scheme, torch.device("cuda"))
+    args, routed = wave.args, "card"
+    if args is None:
+        require(wave.call is not None, "the chimera path aligned nothing")
+        cap = BatchAligner.PAIR_BUCKETS[-1]
+        with largest_wave() as sent:
+            aligner._dispatch(wave.call[0][:cap], wave.call[1][:cap])
+        args, routed = sent.args, "host"
+    emit({"phase": "chimera_wave", "routed_to": routed,
+          "B": args[0].shape[1], "M": args[0].shape[0],
+          "N": args[3].shape[0], "card": gpu})
+    records += nw_records(gpu, aligner._key, scheme, args, "_chimera")
+    return launches, records
 
 
 def trace(run, match=()) -> dict:
@@ -1828,6 +2104,7 @@ def main() -> int:
     db_path, q_path = generate(WORK)
     amp_path = generate_amp(WORK / "amp100k.fasta")
     ap_path = generate_ap(WORK / "ap2000.fasta")
+    chim_path = generate_amp(WORK / "amp50k.fasta", families=CHIM_FAMILIES)
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "card": gpu})
     kern = phase_kernels(gpu, db_path, q_path)
@@ -1836,11 +2113,14 @@ def main() -> int:
     phase_parity(gpu)
     phase_cluster_parity(gpu)
     phase_allpairs_parity(gpu)
+    phase_chimera_parity(gpu)
     by_path = {"usearch_global": phase_full(gpu, db_path, q_path)}
     by_path["usearch_global_mismatch_200"] = phase_full(
         gpu, db_path, q_path, MISMATCH_200, "full_mm200")
     by_path["cluster_size"] = phase_cluster_full(gpu, amp_path)
     by_path["allpairs_global"] = phase_allpairs_full(gpu, ap_path)
+    by_path["uchime3_denovo"], records = phase_chimera_full(gpu, chim_path)
+    kern.update({o["kernel"]: o for o in records})
     sources = {
         "score_dense": ("vsearch_tpu_torch/csrc/score_dense.cu",
                         "vsearch_tpu/ops/score_mxu.py:130"),
@@ -1876,10 +2156,11 @@ def main() -> int:
         entry.update({f: kern[name][f] for f in fields + walk_fields
                       if f in kern[name]})
         # K2, K3, K6 and K7 run at more than one shape: their numbers above
-        # are at the search prefetch's, these at the cluster prefetch's and
-        # a walk round's; K4's above at the index's full capacity,
-        # its prefix shape at the filled blocks the cell's top-k scans
-        for shape in ("cluster", "walk", "prefix"):
+        # are at the search prefetch's, these at the cluster prefetch's, a
+        # walk round's and the chimera cell's largest wave; K4's above at
+        # the index's full capacity, its prefix shape at the filled blocks
+        # the cell's top-k scans
+        for shape in ("cluster", "walk", "prefix", "chimera"):
             if name + "_" + shape in kern:
                 other = kern[name + "_" + shape]
                 entry[shape + "_shape"] = {f: other[f]

@@ -669,6 +669,11 @@ def dispatch(params: Parameters) -> None:
         from .commands.cluster import cluster_command
         cluster_command(params, command)
         return
+    if command in ("uchime_denovo", "uchime2_denovo", "uchime3_denovo",
+                   "uchime_ref", "chimeras_denovo"):
+        from .commands.chimera import chimera_command
+        chimera_command(params, command)
+        return
     raise CliError("Command --%s not yet ported to vsearch_tpu_torch"
                    % command)
 

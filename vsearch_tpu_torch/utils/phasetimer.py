@@ -20,6 +20,17 @@ prefetch assembly and align nests inside walk and resolve:
   host_topk  candidate counting on the host tier
   topk_fetch, prefetch, walk, align  as above
   resolve    serial resolution with the same-round repair
+
+and in chimera detection (core/chimera.py, commands/chimera.py), where
+align nests inside walk and resolve:
+  load       db read, masking and abundance sort, the search context
+  prep       round part and full-query k-mer extraction
+  dispatch   K4 top-k dispatch of the round's parts (growing index)
+  host_topk  part candidates on the host tier or the static index (K1)
+  topk_fetch, walk, align  as above
+  topk_cut   the fetched top-k cut into candidate lists
+  tracker    the same-round repair index over the round's parts
+  resolve    serial resolution, outputs and index growth
 """
 
 from __future__ import annotations
