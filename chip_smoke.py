@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Five main paths: usearch_global (kernels K1, K2, K3), greedy
+Six main paths: usearch_global (kernels K1, K2, K3), greedy
 clustering (K4, K2, K3), allpairs_global (K2m, K5), usearch_global
 under --mismatch -200, a mismatch score outside int8 that routes the
 alignments to the wavefront forward and the flat backtrack (K1, K6, K7),
-and de novo chimera detection (K4, and K2, K3 where its alignment waves
+de novo chimera detection (K4, and K2, K3 where its alignment waves
 pass the host crossover; its parity runs also drive uchime_ref's K1 and
-K6, K7 under --mismatch -200).
+K6, K7 under --mismatch -200), and the session API's
+SearchSession.search_batch (K1, K2, K3; its parity runs also drive
+ChimeraSession's K1).
 Phases (any failure ends the run with a non-zero exit and no result
 line):
 
@@ -59,7 +61,19 @@ line):
    reference on, on cuda with every alignment call on the device aligner
    and on cpu, every output byte-equal, each cuda run launching K4 (K1
    for uchime_ref).  The --mismatch -200 runs must launch K6 and K7 and
-   no K2, K3 or plain version; every other run no K6 or K7;
+   no K2, K3 or plain version; every other run no K6 or K7.  Then the
+   session API (tests/api_sessions.py) on cuda and on cpu, results equal
+   as JSON: SearchSession.search on each of write_parity_workload's 64
+   queries and search_batch on all 64 against its 520 references (cuda:
+   K1, K2 and K3), ChimeraSession.detect on the chimera workload's
+   queries against its 520 references (cuda: K1) and
+   ClusterSession.assign over a small family set sorted by length; then
+   the amplicon workflow of tests/amplicon_workload.py on 4000 seeded
+   pairs (--fastq_mergepairs, --fastq_filter --fastq_maxee 1,
+   --fastx_uniques, --cluster_unoise, --uchime3_denovo, --usearch_global
+   --otutabout, --sintax, each step's outputs feeding the next) on cuda
+   and on cpu, every step's outputs byte-equal, with each step's
+   seconds and the device steps' launches;
 4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
    sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
    --maxrejects 32, wordlength 8) through the CLI, one warm-up then one
@@ -85,10 +99,14 @@ line):
    launch, then K4 against its plain version on that run's largest chunk
    and K2 and K3 on the timed run's largest alignment wave (its largest
    alignment call, sent to the card, where no wave passed the
-   crossover).  Before each full-width run the aligner's process-wide
-   routing estimates are set back to where a fresh CLI process starts, and
-   the host/device crossover (DP cells) and the walk rounds that reached
-   the device forward are printed;
+   crossover).  The session API: a SearchSession over the bench dataset
+   (FULL_ARGS), search_batch on its 2000 queries as one batch, once to
+   warm up, once timed with the launch counts read around it, four times
+   more timed, once under torch.profiler; a result row a query, each equal in target and CIGAR
+   to the usearch_global run's uc line.  Before each full-width run the
+   aligner's process-wide routing estimates are set back to where a
+   fresh CLI process starts, and the host/device crossover (DP cells) and
+   the walk rounds that reached the device forward are printed;
 5. the script's total seconds, and one line listing every kernel with its
    numbers and its launches on each path.
 
@@ -150,6 +168,9 @@ CHIM_ARGS = ["--threads", "1", "--quiet"]
 
 # a mismatch score outside int8: the aligner's codes wire (K6 + K7)
 MISMATCH_200 = ["--mismatch", "-200"]
+
+# timed search_batch calls of the session API's full-width run
+API_REPS = 5
 
 # the kernels each main path must launch
 SEARCH_KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
@@ -1843,6 +1864,201 @@ def phase_chimera_full(gpu, chim_path):
     return launches, records
 
 
+def phase_api_parity(gpu):
+    """The session API (tests/api_sessions.py) on cuda and on cpu: the
+    search session over write_parity_workload's 520 references
+    (SearchSession.search on each of the 64 queries, a batch of one each,
+    then search_batch on all 64 as one batch), the chimera session over the
+    chimera workload's queries against its 520 references
+    (ChimeraSession.detect) and the cluster session over a small family set
+    sorted by length (ClusterSession.assign on every sequence).  The
+    results, as JSON, must be equal.  On cuda the search session must
+    launch K1, K2 and K3 and the chimera session K1, and neither a plain
+    version."""
+    from tests import api_sessions
+    from tests.chimera_workload import write_ref_workload
+    from vsearch_tpu_torch import api
+    from vsearch_tpu_torch.ops import cuda_lib
+    from vsearch_tpu_torch.params import Parameters
+    d = WORK / "apiparity"
+    d.mkdir(parents=True, exist_ok=True)
+    db, q = write_parity_workload(d)
+    _, chim_q, chim_db = write_ref_workload(d)
+    clu = api_sessions.write_cluster_set(d / "clu.fa")
+    sessions = {
+        "search": (lambda dev: api_sessions.search(
+            api, Parameters, db, q, dev, n_single=64), SEARCH_KERNELS),
+        "chimera": (lambda dev: api_sessions.chimera(
+            api, Parameters, chim_q, chim_db, dev), ("score_dense",)),
+        "cluster": (lambda dev: api_sessions.cluster(
+            api, Parameters, clu, dev), ())}
+    for name, (call, required) in sessions.items():
+        got = {}
+        for run in ("cuda", "cpu"):
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            got[run] = call(run)
+            seconds = time.perf_counter() - t0
+            launches = dict(cuda_lib.LAUNCHES)
+            if run == "cuda":
+                require(all(launches[k] > 0 for k in required),
+                        "a kernel of the %s session did not launch" % name)
+                require(not any(cuda_lib.PLAIN_CALLS.values()),
+                        "a plain version ran on the card (%s session)"
+                        % name)
+                require_wire(launches, False, "api " + name)
+            emit({"phase": "api_parity_run", "session": name, "run": run,
+                  "seconds": seconds, "launches": launches, "card": gpu})
+        require(got["cuda"] == got["cpu"],
+                "cuda and cpu %s session results differ" % name)
+        if name == "search":
+            require(len(got["cuda"]["batch"]) == 64
+                    and got["cuda"]["single"] == [
+                        row[:3] for row in got["cuda"]["batch"]],
+                    "search and search_batch disagree")
+        emit({"phase": "api_parity", "session": name, "equal": True,
+              "results": len(got["cuda"]["batch"] if name == "search"
+                             else got["cuda"]), "card": gpu})
+
+
+def phase_pipeline_parity(gpu):
+    """The amplicon workflow of tests/amplicon_workload.py on its seeded
+    4000 pairs through the CLI, each step's outputs feeding the next
+    (--fastq_mergepairs, --fastq_filter --fastq_maxee 1, --fastx_uniques,
+    --cluster_unoise, --uchime3_denovo, --usearch_global --otutabout,
+    --sintax), once on cuda as the aligner routes it and once on cpu with
+    every alignment on the host C tier.  Every step's outputs must be
+    byte-equal; each step's seconds and each device step's launches are
+    printed."""
+    from tests.amplicon_workload import (DEVICE_STEPS, pipeline_steps,
+                                         write_amplicon_workload)
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch
+    d = WORK / "pipeline"
+    d.mkdir(parents=True, exist_ok=True)
+    steps = pipeline_steps(*write_amplicon_workload(d))
+    aligner = nw_batch.BatchAligner
+    crossover = aligner._native_cells_crossover
+    here = os.getcwd()
+    seconds = {}
+    try:
+        for run in ("cuda", "cpu"):
+            wd = d / run
+            wd.mkdir(exist_ok=True)
+            os.chdir(wd)
+            aligner._native_cells_crossover = (
+                crossover if run == "cuda" else (lambda self: float("inf")))
+            seconds[run] = {}
+            for name, argv, _ in steps:
+                fresh_router(argv)
+                cuda_lib.reset_launches()
+                t0 = time.perf_counter()
+                rc = cli.main(argv + ["--threads", "1", "--quiet"],
+                              device=run)
+                seconds[run][name] = time.perf_counter() - t0
+                require(rc == 0, "pipeline step %s failed (%s)"
+                        % (name, run))
+                if run == "cuda":
+                    require(not any(cuda_lib.PLAIN_CALLS.values()),
+                            "a plain version ran on the card (%s)" % name)
+                    if name in DEVICE_STEPS:
+                        emit({"phase": "pipeline_launches", "step": name,
+                              "launches": dict(cuda_lib.LAUNCHES),
+                              "card": gpu})
+    finally:
+        os.chdir(here)
+        aligner._native_cells_crossover = crossover
+    for name, _, outs in steps:
+        for o in outs:
+            require((d / "cuda" / o).read_bytes()
+                    == (d / "cpu" / o).read_bytes(),
+                    "cuda and cpu pipeline outputs differ (%s)" % o)
+    zotus = (d / "cuda" / "zotus_nc.fa").read_bytes().count(b">")
+    chimeras = (d / "cuda" / "zotus_ch.fa").read_bytes().count(b">")
+    otus = (d / "cuda" / "otutab.tsv").read_bytes().count(b"\n") - 1
+    require(zotus > 0 and chimeras > 0 and otus == zotus,
+            "%d ZOTUs, %d chimeras, %d OTU table rows"
+            % (zotus, chimeras, otus))
+    emit({"phase": "pipeline", "equal": True, "zotus": zotus,
+          "chimeras": chimeras, "seconds": seconds, "card": gpu})
+
+
+def phase_api_full(gpu, db_path, q_path):
+    """The search cell through the session API: a SearchSession over the
+    bench dataset (read_database, the parameters of FULL_ARGS), then
+    search_batch on the 2000 queries as one batch: once to warm up, once
+    timed with the launch counts read around it, API_REPS - 1 times more
+    timed, once under torch.profiler with the host's time by pipeline
+    phase.  Each result row must match the uc line of the CLI's
+    run of the same cell (phase_full's full.uc): no row for an N line, the
+    target and CIGAR of an H line ("=" a CIGAR of matches only)."""
+    import torch
+    from tests.api_sessions import read_fasta
+    from vsearch_tpu_torch import api, cli
+    from vsearch_tpu_torch.ops import cuda_lib
+    from vsearch_tpu_torch.utils import phasetimer
+    argv = ["--usearch_global", str(q_path), "--db", str(db_path), "--uc",
+            os.devnull] + FULL_ARGS
+    params = cli.parse_args(argv)
+    queries = [(h, s, 1) for h, s in read_fasta(q_path)]
+    t0 = time.perf_counter()
+    with api.session(params, device="cuda"):
+        db, index = api.read_database(str(db_path), params)
+        with api.SearchSession(params, db, index) as ss:
+            build = time.perf_counter() - t0
+
+            def run():
+                fresh_router(argv)
+                t0 = time.perf_counter()
+                rows = ss.search_batch(queries)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, rows
+
+            run()
+            cuda_lib.reset_launches()
+            with walk_round_k2() as walk:
+                elapsed, rows = run()
+            launches = dict(cuda_lib.LAUNCHES)
+            # more timed calls: the host's clock varies from call to call
+            again = [run()[0] for _ in range(API_REPS - 1)]
+            phasetimer.ENABLED = True
+            phasetimer.reset()
+            traced = trace(lambda: run()[0])
+            phasetimer.ENABLED = False
+    require(not any(cuda_lib.PLAIN_CALLS.values()),
+            "a plain version ran on the API search path")
+    for name in SEARCH_KERNELS:
+        require(launches[name] > 0,
+                "kernel %s was not launched on the API search path" % name)
+    require_wire(launches, False, "api_full")
+    require(len(rows) == N_QUERIES, "%d result rows" % len(rows))
+    uc = (WORK / "full.uc").read_bytes().splitlines()
+    require(len(uc) == N_QUERIES, "uc has %d lines" % len(uc))
+    hits = 0
+    for row, line in zip(rows, uc):
+        f = line.split(b"\t")
+        if f[0] == b"N":
+            require(not row, "a result for the no-hit query %s" % f[8])
+            continue
+        require(len(row) == 1, "%d results for %s" % (len(row), f[8]))
+        r = row[0]
+        cigar = f[7].decode()
+        require(db.getheader(r.target) == f[9]
+                and (r.cigar == cigar if cigar != "="
+                     else r.cigar.rstrip("0123456789M") == ""),
+                "the result for %s differs from its uc line" % f[8])
+        hits += 1
+    emit({"phase": "api_full", "queries": N_QUERIES, "db": DB_SIZE,
+          "seq_len": SEQ_LEN, "session_build_seconds": build,
+          "seconds": elapsed, "queries_per_s": N_QUERIES / elapsed,
+          "seconds_again": again, "hits": hits, "launches": launches,
+          "nw_rowscan_walk_rounds": walk.count, "card": gpu})
+    emit(dict({"phase": "api_full_traced"}, **traced,
+              host_phase_s=dict(phasetimer.acc), card=gpu))
+    phasetimer.reset()
+    return launches
+
+
 def trace(run, match=()) -> dict:
     """run() once under torch.profiler: its wall seconds, the device's busy
     time, its idle share, the device time of the top kernels by name and
@@ -2114,7 +2330,10 @@ def main() -> int:
     phase_cluster_parity(gpu)
     phase_allpairs_parity(gpu)
     phase_chimera_parity(gpu)
+    phase_api_parity(gpu)
+    phase_pipeline_parity(gpu)
     by_path = {"usearch_global": phase_full(gpu, db_path, q_path)}
+    by_path["api_search"] = phase_api_full(gpu, db_path, q_path)
     by_path["usearch_global_mismatch_200"] = phase_full(
         gpu, db_path, q_path, MISMATCH_200, "full_mm200")
     by_path["cluster_size"] = phase_cluster_full(gpu, amp_path)

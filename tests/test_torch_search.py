@@ -98,11 +98,14 @@ def test_entry_point_raises_without_card(monkeypatch, tmp_path):
 
 
 def test_unported_verb_fails(tmp_path):
+    """Every verb of vsearch_tpu is ported, so an unknown command stands
+    in: it fails, and writes nothing."""
     from vsearch_tpu_torch import cli
     db, _ = _write_workload(tmp_path, db_n=8, n_queries=1)
-    rc = cli.main(["--derep_fulllength", str(db), "--output",
+    rc = cli.main(["--no_such_command", str(db), "--output",
                    str(tmp_path / "o.fa"), "--quiet"], device="cpu")
     assert rc != 0
+    assert not (tmp_path / "o.fa").exists()
 
 
 def test_port_imports_neither_jax_nor_vsearch_tpu():

@@ -663,19 +663,111 @@ def dispatch(params: Parameters) -> None:
     if command == "usearch_global":
         from .commands.usearch_global import usearch_global
         usearch_global(params)
-        return
-    if command in ("cluster_fast", "cluster_size", "cluster_smallmem",
-                   "cluster_unoise"):
+    elif command in ("derep_fulllength", "derep_id", "fastx_uniques"):
+        from .commands.derep import derep
+        derep(params, command)
+    elif command == "derep_prefix":
+        from .commands.derep import derep_prefix
+        derep_prefix(params)
+    elif command == "derep_smallmem":
+        from .commands.derep import derep_smallmem
+        derep_smallmem(params)
+    elif command == "sortbysize":
+        from .commands.sort import sortbysize
+        sortbysize(params)
+    elif command == "sortbylength":
+        from .commands.sort import sortbylength
+        sortbylength(params)
+    elif command == "shuffle":
+        from .commands.sort import shuffle
+        shuffle(params)
+    elif command in ("cluster_fast", "cluster_size", "cluster_smallmem",
+                     "cluster_unoise"):
         from .commands.cluster import cluster_command
         cluster_command(params, command)
-        return
-    if command in ("uchime_denovo", "uchime2_denovo", "uchime3_denovo",
-                   "uchime_ref", "chimeras_denovo"):
+    elif command in ("uchime_denovo", "uchime2_denovo", "uchime3_denovo",
+                     "uchime_ref", "chimeras_denovo"):
         from .commands.chimera import chimera_command
         chimera_command(params, command)
-        return
-    raise CliError("Command --%s not yet ported to vsearch_tpu_torch"
-                   % command)
+    elif command == "fastq_mergepairs":
+        from .commands.mergepairs import fastq_mergepairs
+        fastq_mergepairs(params)
+    elif command in ("fastq_filter", "fastx_filter"):
+        from .commands.filter import filter_command
+        filter_command(params, command)
+    elif command == "search_exact":
+        from .commands.search_exact import search_exact
+        search_exact(params)
+    elif command == "fastx_mask":
+        from .commands.fastx_ops import fastx_mask
+        fastx_mask(params)
+    elif command == "maskfasta":
+        from .commands.fastx_ops import maskfasta
+        maskfasta(params)
+    elif command == "fastx_revcomp":
+        from .commands.fastx_ops import fastx_revcomp
+        fastx_revcomp(params)
+    elif command == "fastx_subsample":
+        from .commands.fastx_ops import fastx_subsample
+        fastx_subsample(params)
+    elif command == "rereplicate":
+        from .commands.fastx_ops import rereplicate
+        # reference: dispatch forces xsize for rereplicate (vsearch.cc:737)
+        params.opt_xsize = True
+        rereplicate(params)
+    elif command == "sintax":
+        from .commands.sintax import sintax
+        sintax(params)
+    elif command == "orient":
+        from .commands.orient import orient
+        orient(params)
+    elif command == "fastq_convert":
+        from .commands.convert import fastq_convert
+        fastq_convert(params)
+    elif command == "fasta2fastq":
+        from .commands.convert import fasta2fastq
+        fasta2fastq(params)
+    elif command == "fastq_join":
+        from .commands.convert import fastq_join
+        fastq_join(params)
+    elif command == "fastx_syncpairs":
+        from .commands.convert import fastx_syncpairs
+        fastx_syncpairs(params)
+    elif command == "fastq_chars":
+        from .commands.stats import fastq_chars
+        fastq_chars(params)
+    elif command == "fastq_stats":
+        from .commands.stats import fastq_stats
+        fastq_stats(params)
+    elif command == "fastq_eestats":
+        from .commands.stats import fastq_eestats
+        fastq_eestats(params)
+    elif command == "fastq_eestats2":
+        from .commands.stats import fastq_eestats2
+        fastq_eestats2(params)
+    elif command in ("fastx_getseq", "fastx_getseqs", "fastx_getsubseq"):
+        from .commands.getseq import getseq
+        getseq(params, command)
+    elif command == "cut":
+        from .commands.cut import cut
+        cut(params)
+    elif command == "sff_convert":
+        from .commands.sff import sff_convert
+        sff_convert(params)
+    elif command == "makeudb_usearch":
+        from .commands.udb_cmds import makeudb_usearch
+        makeudb_usearch(params)
+    elif command == "udb2fasta":
+        from .commands.udb_cmds import udb2fasta
+        udb2fasta(params)
+    elif command == "udbinfo":
+        from .commands.udb_cmds import udbinfo
+        udbinfo(params)
+    elif command == "udbstats":
+        from .commands.udb_cmds import udbstats
+        udbstats(params)
+    else:
+        raise CliError("Command %s not implemented yet" % command)
 
 
 def main(argv: Optional[List[str]] = None,
