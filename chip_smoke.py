@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six main paths: usearch_global (kernels K1, K2, K3), greedy
+Seven main paths: usearch_global (kernels K1, K2, K3), greedy
 clustering (K4, K2, K3), allpairs_global (K2m, K5), usearch_global
 under --mismatch -200, a mismatch score outside int8 that routes the
 alignments to the wavefront forward and the flat backtrack (K1, K6, K7),
@@ -11,7 +11,9 @@ de novo chimera detection (K4, and K2, K3 where its alignment waves
 pass the host crossover; its parity runs also drive uchime_ref's K1 and
 K6, K7 under --mismatch -200), and the session API's
 SearchSession.search_batch (K1, K2, K3; its parity runs also drive
-ChimeraSession's K1).
+ChimeraSession's K1); and the multi-process path, two
+torch.distributed ranks sharing the card, each running the kernels of
+its shard (K1, K4, K2 + K3, K6 + K7).
 Phases (any failure ends the run with a non-zero exit and no result
 line):
 
@@ -73,7 +75,10 @@ line):
    --fastx_uniques, --cluster_unoise, --uchime3_denovo, --usearch_global
    --otutabout, --sintax, each step's outputs feeding the next) on cuda
    and on cpu, every step's outputs byte-equal, with each step's
-   seconds and the device steps' launches;
+   seconds and the device steps' launches; then the multi-block merge:
+   usearch_global of 64 queries against 270 000 sequences of 64 nt,
+   three index blocks of DeviceKmerIndex.BLOCK_POS positions, on cuda
+   (K1 once a block) and on cpu, uc and blast6 byte-equal;
 4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
    sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
    --maxrejects 32, wordlength 8) through the CLI, one warm-up then one
@@ -107,7 +112,19 @@ line):
    aligner's process-wide routing estimates are set back to where a
    fresh CLI process starts, and the host/device crossover (DP cells) and
    the walk rounds that reached the device forward are printed;
-5. the script's total seconds, and one line listing every kernel with its
+5. the sharded path: tests/parallel_driver.py under torchrun, two ranks
+   on the one card over gloo (nccl refuses two ranks on one card), runs
+   the search cell (after a warm-up), the chimera and the clustering
+   cells as routed, and at phase 3's sizes with every alignment call on
+   the card the families' --mismatch -200 search, uchime_ref and the
+   multi-block search (two blocks a rank), each under torch.profiler.
+   Every output must be byte-equal to the single-process cuda run's; in
+   each rank the path's kernels must launch (K1 twice a rank on the
+   multi-block DB), no plain version run, the sharded index be built and
+   collectives run, and neither jax nor vsearch_tpu be loaded.  Each
+   run's seconds, launches, collectives and idle share are printed by
+   rank: two ranks on one card measure function, not scaling;
+6. the script's total seconds, and one line listing every kernel with its
    numbers and its launches on each path.
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA device;
@@ -171,6 +188,33 @@ MISMATCH_200 = ["--mismatch", "-200"]
 
 # timed search_batch calls of the session API's full-width run
 API_REPS = 5
+
+# the multi-block merge: more positions than two of
+# DeviceKmerIndex.BLOCK_POS (131 072), so that one process scores three
+# blocks and each of two ranks two; short sequences keep the cpu run cheap
+MB_DB = 270000
+MB_LEN = 64
+MB_QUERIES = 64
+MB_ARGS = ["--id", "0.9", "--maxaccepts", "1", "--maxrejects", "32",
+           "--threads", "1", "--quiet"]
+
+# the sharded phase: two ranks on the one card, over gloo (nccl refuses
+# two ranks on one card), through tests/parallel_driver.py
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT = 600
+# runs done once untraced first, as phase 4's search cell: the second
+# run finds its index resident
+SHARDED_WARM = ("sharded_usearch_global",)
+SHARDED_SETUP = ("from vsearch_tpu_torch.ops.nw_batch import BatchAligner\n"
+                 "ROUTER = (BatchAligner._native_cells_crossover,\n"
+                 "          BatchAligner._dev_overhead_ema,\n"
+                 "          BatchAligner._native_rate_ema)\n")
+# the routing estimates a fresh process starts with
+SHARDED_FRESH = ("BatchAligner._native_cells_crossover, "
+                 "BatchAligner._dev_overhead_ema, "
+                 "BatchAligner._native_rate_ema = ROUTER\n")
+# every alignment call on the card, as phase 3's forced runs
+SHARDED_FORCED = "BatchAligner._native_cells_crossover = lambda self: 0\n"
 
 # the kernels each main path must launch
 SEARCH_KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
@@ -1983,6 +2027,208 @@ def phase_pipeline_parity(gpu):
           "chimeras": chimeras, "seconds": seconds, "card": gpu})
 
 
+def phase_multiblock_parity(gpu):
+    """The multi-block merge: usearch_global of MB_QUERIES queries against
+    MB_DB sequences of MB_LEN nt (generate's dataset at that size), more
+    than two of DeviceKmerIndex.BLOCK_POS positions, so that the device
+    index scores three blocks and merges them exactly
+    (ops/score_dense.merge_blocks).  On cuda and on cpu, uc and blast6
+    byte-equal, the cuda run launching K1 once a block.  The sharded phase
+    runs it again at two ranks, whose shards hold two blocks each.
+    Returns the dataset's paths and the cuda run's outputs."""
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops import cuda_lib
+    from vsearch_tpu_torch.ops.score import DeviceKmerIndex
+    d = WORK / "multiblock"
+    d.mkdir(parents=True, exist_ok=True)
+    db, q = generate(d, MB_DB, MB_QUERIES, MB_LEN)
+    blocks = -(-MB_DB // DeviceKmerIndex.BLOCK_POS)
+    outs, seconds = {}, {}
+    for run in ("cuda", "cpu"):
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["--usearch_global", str(q), "--db", str(db), "--uc",
+                       str(d / ("%s.uc" % run)), "--blast6out",
+                       str(d / ("%s.b6" % run))] + MB_ARGS, device=run)
+        seconds[run] = time.perf_counter() - t0
+        require(rc == 0, "usearch_global failed (multi-block, %s)" % run)
+        outs[run] = [(d / ("%s.%s" % (run, o))).read_bytes()
+                     for o in ("uc", "b6")]
+        if run == "cuda":
+            launches = dict(cuda_lib.LAUNCHES)
+            require(not any(cuda_lib.PLAIN_CALLS.values()),
+                    "a plain version ran on the card (multi-block)")
+            require(launches["score_dense"] == blocks,
+                    "K1 launched %d times on %d blocks"
+                    % (launches["score_dense"], blocks))
+    require(outs["cuda"] == outs["cpu"],
+            "cuda and cpu outputs differ (multi-block)")
+    hits = sum(1 for ln in outs["cuda"][0].splitlines()
+               if ln.startswith(b"H\t"))
+    require(hits > 0, "the multi-block search found nothing")
+    emit({"phase": "multiblock_parity", "db": MB_DB, "seq_len": MB_LEN,
+          "queries": MB_QUERIES, "blocks": blocks, "hits": hits,
+          "equal": True, "launches": launches, "seconds": seconds,
+          "card": gpu})
+    return db, q, d / "cuda.uc", d / "cuda.b6"
+
+
+def run_ranks(spec_path: pathlib.Path, ranks: int, timeout: int):
+    """tests/parallel_driver.py under torchrun, its process group in its
+    own session so that a timeout stops every rank.  Returns the ranks'
+    reports."""
+    env = dict(os.environ)
+    env.pop("VSEARCH_TPU_TORCH_DEVICE", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(ranks),
+         str(REPO / "tests" / "parallel_driver.py"), str(spec_path)],
+        cwd=spec_path.parent, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise RuntimeError("chip_smoke: the sharded run passed %d s"
+                           % timeout)
+    require(proc.returncode == 0, "the sharded run failed:\n" + log[-6000:])
+    spec = json.loads(spec_path.read_text())
+    return [json.loads(pathlib.Path("%s.rank%d.json" % (spec["report"], r))
+                       .read_text()) for r in range(ranks)]
+
+
+def sharded_runs(db_path, q_path, amp_path, chim_path, mb_db, mb_q, mb_uc,
+                 mb_b6):
+    """The sharded phase's runs, each against the single-process cuda run
+    of the same input: the full-width search, chimera and clustering cells
+    of phase 4 as routed, and at phase 3's sizes with every alignment call
+    on the card, the families' --mismatch -200 search, uchime_ref and the
+    multi-block search."""
+    d = WORK / "sharded"
+    par, chp = WORK / "parity", WORK / "chparity"
+    chim_outs = ("chimeras", "nonchimeras", "borderline")
+    uchime = ("uchimeout", "uchimealns", "chimeras", "nonchimeras",
+              "borderline")
+    fq, fdb = par / "fq.fasta", par / "fdb.fasta"
+    return {
+        "sharded_usearch_global": (
+            ["--usearch_global", str(q_path), "--db", str(db_path), "--uc",
+             str(d / "full.uc")] + FULL_ARGS,
+            {d / "full.uc": WORK / "full.uc"}, SHARDED_FRESH,
+            SEARCH_KERNELS, "ShardedKmerIndex"),
+        "sharded_uchime3_denovo": (
+            ["--uchime3_denovo", str(chim_path)] + CHIM_ARGS
+            + [x for o in chim_outs for x in ("--" + o, str(d / ("chimera."
+                                                                 + o)))],
+            {d / ("chimera." + o): WORK / ("chimera." + o)
+             for o in chim_outs}, SHARDED_FRESH, ("score_ranked",),
+            "ShardedGrowingKmerIndex"),
+        "sharded_cluster_size": (
+            ["--cluster_size", str(amp_path), "--uc", str(d / "cluster.uc"),
+             "--centroids", str(d / "cluster.fa")] + CLUSTER_ARGS,
+            {d / "cluster.uc": WORK / "cluster.uc",
+             d / "cluster.fa": WORK / "cluster.fa"}, SHARDED_FRESH,
+            CLUSTER_KERNELS, "ShardedGrowingKmerIndex"),
+        "sharded_usearch_global_mismatch_200": (
+            ["--usearch_global", str(fq), "--db", str(fdb), "--uc",
+             str(d / "mm200.uc"), "--blast6out", str(d / "mm200.b6"),
+             "--threads", "1", "--quiet", "--id", "0.8", "--maxaccepts", "4",
+             "--maxrejects", "8"] + MISMATCH_200,
+            {d / "mm200.uc": par / "families.mm200.cuda_forced.uc",
+             d / "mm200.b6": par / "families.mm200.cuda_forced.b6"},
+            SHARDED_FORCED, SEARCH_200_KERNELS, "ShardedKmerIndex"),
+        "sharded_uchime_ref": (
+            ["--uchime_ref", str(chp / "ref_q.fa"), "--db",
+             str(chp / "ref_db.fa")] + CHIM_ARGS
+            + [x for o in uchime for x in ("--" + o, str(d / ("ref." + o)))],
+            {d / ("ref." + o): chp / ("uchime_ref.cuda." + o)
+             for o in uchime}, SHARDED_FORCED,
+            ("score_dense",) + ROW_WIRE, "ShardedKmerIndex"),
+        "sharded_multiblock": (
+            ["--usearch_global", str(mb_q), "--db", str(mb_db), "--uc",
+             str(d / "mb.uc"), "--blast6out", str(d / "mb.b6")] + MB_ARGS,
+            {d / "mb.uc": mb_uc, d / "mb.b6": mb_b6}, SHARDED_FRESH,
+            SEARCH_KERNELS, "ShardedKmerIndex"),
+    }
+
+
+def phase_sharded(gpu, runs, ranks=SHARDED_RANKS, shared_card=True):
+    """The sharded path: every run of ``runs`` ({name: (argv, outputs as
+    {this run's path: the single-process cuda run's}, setup, kernels,
+    sharded class)}) at ``ranks`` ranks (tests/parallel_driver.py under
+    torchrun), each under torch.profiler, those of SHARDED_WARM after an
+    untraced warm-up.  With ``shared_card`` every rank runs on cuda:0 over
+    gloo, else rank r on cuda:r over nccl (tools/multicard.py).
+    Every output must be byte-equal to the single-process cuda run's; in
+    each rank every kernel of the run's path must launch, no plain
+    version run, the sharded class be built and a collective run; no
+    rank may load jax or vsearch_tpu.  Prints each run's wall, launches,
+    collectives and device idle share by rank, before the checks; returns
+    each run's launches summed over the ranks."""
+    d = WORK / "sharded"
+    d.mkdir(parents=True, exist_ok=True)
+    spec = d / "spec.json"
+    # nothing named: each rank takes cuda:LOCAL_RANK and nccl
+    placement = ({"backend": "gloo", "device": "cuda:0"} if shared_card
+                 else {})
+    spec.write_text(json.dumps(dict(placement, **{
+        "setup": SHARDED_SETUP, "report": str(d / "report"),
+        "runs": [run for name, (argv, _, setup, _, _) in runs.items()
+                 for run in ([{"name": name + "_warm", "setup": setup,
+                               "argv": argv}] if name in SHARDED_WARM
+                             else []) + [{"name": name, "setup": setup,
+                                          "argv": argv, "trace": True}]]})))
+    t0 = time.perf_counter()
+    reports = run_ranks(spec, ranks, SHARDED_TIMEOUT)
+    wall = time.perf_counter() - t0
+    by_path = {}
+    for name, (_, outs, _, kernels, cls) in runs.items():
+        per_rank = [next(r for r in rep["runs"] if r["name"] == name)
+                    for rep in reports]
+        # the index classes built by the run and its warm-up
+        built = [dict(run["built"], **next(
+            (r["built"] for r in rep["runs"] if r["name"] == name + "_warm"),
+            {})) for rep, run in zip(reports, per_rank)]
+        emit({"phase": "sharded", "run": name, "ranks": ranks,
+              "seconds": [run["seconds"] for run in per_rank],
+              "launches": [run["launches"] for run in per_rank],
+              "collectives": [run["collectives"] for run in per_rank],
+              "built": built,
+              "device_idle_share": [run.get("device_idle_share")
+                                    for run in per_rank],
+              "device_busy_ms": [run.get("device_busy_ms")
+                                 for run in per_rank],
+              "card": gpu})
+        for rep, run, b in zip(reports, per_rank, built):
+            what = "%s, rank %d" % (name, rep["rank"])
+            require(not rep["foreign_modules"],
+                    "jax or vsearch_tpu loaded (%s)" % what)
+            require(run["result"] == 0, "the run failed (%s)" % what)
+            require(all(run["launches"][k] > 0 for k in kernels),
+                    "a kernel of the path did not launch (%s): %s"
+                    % (what, run["launches"]))
+            require(not any(run["plain_calls"].values()),
+                    "a plain version ran (%s)" % what)
+            require(b.get(cls, 0) > 0, "%s was not built (%s)" % (cls, what))
+            require(run["collectives"]["all_gather"] > 0,
+                    "no collective ran (%s)" % what)
+            require(run["device"] == "cuda:%d" % (0 if shared_card
+                                                  else rep["rank"]),
+                    "rank %d on %s" % (rep["rank"], run["device"]))
+        for mine, ref in outs.items():
+            require(pathlib.Path(mine).read_bytes()
+                    == pathlib.Path(ref).read_bytes(),
+                    "sharded and single-process outputs differ (%s, %s)"
+                    % (name, pathlib.Path(ref).name))
+        by_path[name] = {k: sum(run["launches"][k] for run in per_rank)
+                         for k in per_rank[0]["launches"]}
+    emit({"phase": "sharded_total", "seconds": wall, "card": gpu})
+    return by_path
+
+
 def phase_api_full(gpu, db_path, q_path):
     """The search cell through the session API: a SearchSession over the
     bench dataset (read_database, the parameters of FULL_ARGS), then
@@ -2332,6 +2578,7 @@ def main() -> int:
     phase_chimera_parity(gpu)
     phase_api_parity(gpu)
     phase_pipeline_parity(gpu)
+    mb_db, mb_q, mb_uc, mb_b6 = phase_multiblock_parity(gpu)
     by_path = {"usearch_global": phase_full(gpu, db_path, q_path)}
     by_path["api_search"] = phase_api_full(gpu, db_path, q_path)
     by_path["usearch_global_mismatch_200"] = phase_full(
@@ -2340,6 +2587,14 @@ def main() -> int:
     by_path["allpairs_global"] = phase_allpairs_full(gpu, ap_path)
     by_path["uchime3_denovo"], records = phase_chimera_full(gpu, chim_path)
     kern.update({o["kernel"]: o for o in records})
+    by_path.update(phase_sharded(gpu, sharded_runs(
+        db_path, q_path, amp_path, chim_path, mb_db, mb_q, mb_uc, mb_b6)))
+    # each rank's shard of the multi-block DB holds two blocks: C =
+    # 135 168 positions (MB_DB / 2 rounded up to 4096), one chunk of queries
+    require(by_path["sharded_multiblock"]["score_dense"]
+            == 2 * SHARDED_RANKS,
+            "K1 launched %d times on the ranks' two blocks each"
+            % by_path["sharded_multiblock"]["score_dense"])
     sources = {
         "score_dense": ("vsearch_tpu_torch/csrc/score_dense.cu",
                         "vsearch_tpu/ops/score_mxu.py:130"),

@@ -13,7 +13,10 @@ filtering, dereplication, sorting, masking, --search_exact, --sintax,
 --orient, format conversion, statistics, --cut, --sff_convert and the
 UDB verbs).  So is the session API (``api``: SearchSession,
 ClusterSession, ChimeraSession, DerepSession, MergeSession,
-dust_single).  Multi-process scale-out (vsearch_tpu.parallel) is not.
+dust_single).  So is the multi-process scale-out of vsearch_tpu.parallel
+(``parallel``: one torch.distributed rank a shard, started by torchrun;
+``python -m torch.distributed.run --standalone --nproc_per_node N -m
+vsearch_tpu_torch <verb> ...``).
 
 Entry point: ``python -m vsearch_tpu_torch --usearch_global q.fa --db
 db.fa --id 0.9 --uc out.uc`` (on cuda; VSEARCH_TPU_TORCH_DEVICE=cpu, or

@@ -84,12 +84,12 @@ def session_begin(params: Parameters, device: Optional[str] = None) -> None:
     card and without a request for the CPU, selection raises and the
     lock is not taken.
     """
-    from . import device as device_mod
+    from .parallel import distributed
     if not _session_lock.acquire(blocking=False):
         raise SessionError(
             "vsearch session already active (missing session_end?)")
     try:
-        device_mod.select(device)
+        distributed.select_device(device)
     except BaseException:
         _session_lock.release()
         raise

@@ -774,9 +774,14 @@ def main(argv: Optional[List[str]] = None,
          device: Optional[str] = None) -> int:
     """Run one command.  ``device`` names the torch device of the device
     tier ("cuda" unless given; "cpu" runs the kernels' plain versions);
-    without it the VSEARCH_TPU_TORCH_DEVICE environment variable decides."""
-    from . import device as device_mod
-    device_mod.select(device)
+    without it the VSEARCH_TPU_TORCH_DEVICE environment variable decides.
+    Under torchrun (WORLD_SIZE above 1) every rank runs the command over
+    its shard of the device state, and rank 0 writes the outputs
+    (parallel/distributed.py)."""
+    from .parallel import distributed
+    # a process group from torchrun's environment: before any device use
+    distributed.maybe_initialize(device=device)
+    distributed.select_device(device)
     if argv is None:
         argv = sys.argv[1:]
     params: Optional[Parameters] = None
@@ -789,7 +794,7 @@ def main(argv: Optional[List[str]] = None,
             # timestamps, elapsed time and peak memory bracket the report
             import resource
             import time
-            fp_log = open(params.opt_log, "wb")
+            fp_log = open(distributed.output_path(params.opt_log), "wb")
             params.fp_log = fp_log
             stamp = time.strftime("%Y-%m-%dT%H:%M:%S")
             fp_log.write(params.prog_header.encode() + b"\n")

@@ -14,6 +14,7 @@ from ..params import Parameters
 from ..io import fastx as fastx_io
 from ..utils.maps import reverse_complement
 from ..io.openfile import open_output
+from ..parallel.distributed import output_path
 
 
 def fastq_convert(params: Parameters) -> None:
@@ -193,8 +194,8 @@ def fastx_syncpairs(params: Parameters) -> None:
     try:
         dests = []
         for fa, fq in pairs_spec:
-            h_fa = open(fa, "wb") if fa else None
-            h_fq = open(fq, "wb") if fq else None
+            h_fa = open(output_path(fa), "wb") if fa else None
+            h_fq = open(output_path(fq), "wb") if fq else None
             opened.extend(h for h in (h_fa, h_fq) if h)
             dests.append((fa, fq, (h_fa, h_fq)))
         synced_fwd, synced_rev, orph_fwd, orph_rev = dests

@@ -343,7 +343,8 @@ def _post_derep(params: Parameters, is_uniques: bool, out_fasta,
     n_selected = sum(1 for c in clusters if selected(c))
 
     if out_fasta is not None:
-        with open(out_fasta, "wb") as out, \
+        from ..parallel.distributed import output_path
+        with open(output_path(out_fasta), "wb") as out, \
                 Progress("Writing FASTA output file", n, params) as prog:
             relabel_count = 0
             for c in clusters:

@@ -44,7 +44,7 @@ from ..ops import kmer as kmer_ops
 from ..ops.bundle import bundle_fetch, unbundle_fetch
 from ..ops.nw import AlignmentResult
 from ..ops.score_dense import RANK_MAX
-from ..ops.score_grow import GrowingDeviceKmerIndex
+from ..ops.score_grow import GrowingDeviceKmerIndex, growing_index_class
 from ..utils.maps import CHRMAP_4BIT, CHRMAP_UPCASE, AMBIGUOUS_4BIT
 from ..utils.phasetimer import phase
 from .searchcore import (Hit, QueryInfo, QueryWalk, join_hits,
@@ -195,7 +195,8 @@ class ChimeraEngine:
         return self._dev_index
 
     def _build_device(self, count: int) -> GrowingDeviceKmerIndex:
-        return GrowingDeviceKmerIndex.build(
+        # several ranks: ShardedGrowingKmerIndex
+        return growing_index_class().build(
             self.index.wordlength, self.index.kmer_lists_by_position(),
             list(self.index.lengths), list(self.index.mapping),
             capacity=self._device_capacity(count),

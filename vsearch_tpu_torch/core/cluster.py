@@ -30,7 +30,7 @@ from ..ops.bundle import bundle_fetch, unbundle_fetch
 from ..ops.nw import AlignmentResult
 from ..ops.nw_batch import _bucket
 from ..ops.score_dense import RANK_MAX
-from ..ops.score_grow import GrowingDeviceKmerIndex
+from ..ops.score_grow import growing_index_class
 from ..utils import maps
 from ..utils.phasetimer import phase
 from .searchcore import (Hit, QueryInfo, QueryWalk, align_trim,
@@ -135,7 +135,7 @@ class ClusterEngine:
         self.clusters = 0
         self._extras_postings = None   # per-round native postings
         self._extras_cache_len = -1
-        self._dev_index = None         # GrowingDeviceKmerIndex once active
+        self._dev_index = None         # the growing index once active
         # (query, strand, target) -> alignment, prepared per round by
         # _prealign_carry
         self._repair_cache: Dict[Tuple[int, int, int], AlignmentResult] = {}
@@ -162,7 +162,8 @@ class ClusterEngine:
         if count < self.DEVICE_MIN or count > self.DEVICE_MAX:
             self._dev_index = None
             return
-        self._dev_index = GrowingDeviceKmerIndex.build(
+        # several ranks: ShardedGrowingKmerIndex
+        self._dev_index = growing_index_class().build(
             self.index.wordlength, self.index.kmer_lists_by_position(),
             list(self.index.lengths), list(self.index.mapping),
             capacity=self._device_capacity(count),

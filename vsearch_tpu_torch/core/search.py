@@ -119,7 +119,7 @@ class SearchContext:
         index, clamp maxaccepts/maxrejects, compute tophits.  The aligner
         always runs on the port's device; the device k-mer index is built
         for a DB of at least 512 sequences (below that the host index
-        scores)."""
+        scores), sharded over the ranks of a process group."""
         if index is None:
             if params.opt_dbmask == Masking.dust:
                 mask_mod.dust_all(db, params)
@@ -143,12 +143,21 @@ class SearchContext:
         aligner = BatchAligner(ScoreScheme.from_params(params), dev)
         device_index = None
         if index.count >= 512:
+            # several ranks: the positions are sharded over them
+            # (parallel/sharded_index.py)
+            from ..parallel.mesh import active_mesh
+            if active_mesh() is not None:
+                from ..parallel.sharded_index import ShardedKmerIndex
+                index_cls = ShardedKmerIndex
+            else:
+                index_cls = DeviceKmerIndex
             # ride the load_db_and_index session cache: the packed
             # device tensors are immutable alongside the host index
             device_index = getattr(index, "_device_index", None)
-            if (device_index is None or device_index.n != index.count
+            if (type(device_index) is not index_cls
+                    or device_index.n != index.count
                     or device_index.device != dev):
-                device_index = DeviceKmerIndex(
+                device_index = index_cls(
                     index.wordlength, index.kmer_lists_by_position(),
                     np.asarray(index.lengths), np.asarray(index.mapping),
                     device=dev)

@@ -99,6 +99,10 @@ def open_output(path: str, name: str = "writing") -> IO[bytes]:
     exactly as the reference's OutputOption does."""
     if path == "-":
         return sys.stdout.buffer
+    # several ranks: the replicated drivers other than rank 0 write to the
+    # null device
+    from ..parallel.distributed import output_path
+    path = output_path(path)
     try:
         return CheckedOutput(open(path, "wb"))
     except OSError:

@@ -180,7 +180,8 @@ def write_udb(filename: str, params: Parameters, db, index) -> None:
     head[17] = 0x0000746E              # alphabet "nt"
     head[49] = MAGIC_TAIL
 
-    with open(filename, "wb") as out:
+    from ..parallel.distributed import output_path
+    with open(output_path(filename), "wb") as out:
         out.write(head.tobytes())
         out.write(kmercount.tobytes())
         out.write(np.asarray([MAGIC_3BDU], dtype="<u4").tobytes())

@@ -24,6 +24,10 @@ Small batches run on the host C tier instead (native
 vstpu_nw_align_batch): the crossover adapts above NATIVE_CELLS_LIMIT from
 the measured device-call overhead and host cell rate, kept in-process.
 
+Under a mesh of several ranks (parallel/mesh.py) a batch's pairs are
+sharded: each rank aligns its slice of the rows and the results are
+all-gathered, and every rank takes rank 0's host/device route.
+
 Semantics are bit-identical to the reference engine and to ops/nw.py's
 scalar oracle: cells are int32, overflow flags replicate the reference's
 16-bit detection thresholds.
@@ -41,6 +45,7 @@ import torch
 from . import cuda_lib, nw_rowscan, nw_wavefront
 from .nw import SHRT_MAX, AlignmentResult, ScoreScheme
 from .score_dense import POS_SENTINEL
+from ..parallel.mesh import active_mesh
 from ..utils.maps import CHRMAP_4BIT
 
 # op codes emitted by the backtrack
@@ -260,21 +265,45 @@ def backtrack_flat_plain(dirs: torch.Tensor, qlen: torch.Tensor,
     return ops
 
 
+def gather_pairs(mesh, score: torch.Tensor, overflow: torch.Tensor,
+                 ops: torch.Tensor):
+    """The whole batch's (score, overflow, ops) on every rank from each
+    rank's slice of its pairs (nw_jax.py:466-470): ops gathered along its
+    pair axis, score and overflow as one (2, b) tensor."""
+    meta = mesh.all_gather(torch.stack([score, overflow.to(torch.int32)]),
+                           1)
+    return meta[0], meta[1].bool(), mesh.all_gather(ops, 1)
+
+
 def gather_align(forward, qside, qlen, pos, db_codes, tlen_by_pos, N: int,
                  row_wire: bool = True):
     """Forward + backtrack over pairs whose targets live on the device:
     target rows are gathered by index position, so a dispatch uploads only
     the query side (nw_jax._gather_align_kernel).  qside is (qmT, amT) on
     the row wire (targets transposed for K2, then K3) and q4 on the codes
-    wire (targets as gathered, db_codes[p][:, :N], for K6, then K7)."""
+    wire (targets as gathered, db_codes[p][:, :N], for K6, then K7).
+
+    Under a mesh whose ranks split the pairs evenly, each rank aligns its
+    slice and the results are all-gathered (nw_jax.py:517-561; the codes
+    are replicated on every rank)."""
+    mesh = active_mesh()
+    rows = mesh.rows(qlen.shape[0]) if mesh is not None else None
+    if rows is not None:
+        lo, hi = rows
+        qside = (tuple(x[:, lo:hi].contiguous() for x in qside) if row_wire
+                 else qside[lo:hi])
+        qlen, pos = qlen[lo:hi], pos[lo:hi]
     p = pos.to(torch.int64).clamp(0, db_codes.shape[0] - 1)
     t4 = db_codes[p][:, :N]
     tlen = torch.clamp(tlen_by_pos[p], max=N).to(torch.int32)
     if not row_wire:
         score, overflow, dirs = forward(qside, qlen, t4.contiguous(), tlen)
-        return score, overflow, backtrack_flat(dirs, qlen, tlen)
-    score, overflow, dirs = forward(*qside, qlen, t4.t().contiguous(), tlen)
-    return score, overflow, backtrack_rle(dirs, qlen, tlen)
+        out = score, overflow, backtrack_flat(dirs, qlen, tlen)
+    else:
+        score, overflow, dirs = forward(*qside, qlen, t4.t().contiguous(),
+                                        tlen)
+        out = score, overflow, backtrack_rle(dirs, qlen, tlen)
+    return out if rows is None else gather_pairs(mesh, *out)
 
 
 def compact_lanes(vals: torch.Tensor, idx: torch.Tensor, mm: torch.Tensor,
@@ -391,7 +420,14 @@ class BatchAligner:
         if B == 0:
             return []
         cells = sum(len(q) * len(t) for q, t in zip(qseqs, tseqs))
-        if cells <= self._native_cells_crossover():
+        host = cells <= self._native_cells_crossover()
+        mesh = active_mesh()
+        if mesh is not None:
+            # the EMAs are each process's own measurements: the ranks take
+            # rank 0's route, else one would wait in a collective of the
+            # device path that another never joins
+            host = mesh.decide(host)
+        if host:
             t0 = time.perf_counter()
             native_res = self._align_pairs_native(qseqs, tseqs)
             if native_res is not None:
@@ -487,7 +523,11 @@ class BatchAligner:
         return self._assemble(score, ops_col, qseq, tseq)
 
     def _dispatch(self, qseqs: Sequence[bytes], tseqs: Sequence[bytes]):
-        """Encode, upload and launch one pair chunk; returns device tensors."""
+        """Encode, upload and launch one pair chunk; returns device tensors.
+        Under a mesh whose ranks split the padded batch evenly, each rank
+        encodes and aligns its slice of the rows and the results are
+        all-gathered (nw_jax._build_kernels_sharded, nw_jax.py:447-501);
+        otherwise every rank runs the whole batch."""
         B = len(qseqs)
         qlens = np.array([len(q) for q in qseqs], dtype=np.int32)
         tlens = np.array([len(t) for t in tseqs], dtype=np.int32)
@@ -498,20 +538,26 @@ class BatchAligner:
         qlens_p[:B] = qlens
         tlens_p = np.ones(Bp, dtype=np.int32)
         tlens_p[:B] = tlens
-        qlen_d = self._upload(qlens_p)
-        tlen_d = self._upload(tlens_p)
+        mesh = active_mesh()
+        rows = mesh.rows(Bp) if mesh is not None else None
+        lo, hi = rows or (0, Bp)
+        qseqs, tseqs = qseqs[lo:hi], tseqs[lo:hi]
+        qlen_d = self._upload(qlens_p[lo:hi])
+        tlen_d = self._upload(tlens_p[lo:hi])
         if not self.row_wire:
             score, overflow, dirs = self._forward(
-                self._upload(encode_padded(qseqs, Bp, M)), qlen_d,
-                self._upload(encode_padded(tseqs, Bp, N)), tlen_d)
-            return score, overflow, backtrack_flat(dirs, qlen_d, tlen_d)
-        qmT, amT = encode_rowT(qseqs, Bp, M, self.scheme.mismatch,
-                               self.scheme.n_mismatch)
-        t4T = np.ascontiguousarray(encode_padded(tseqs, Bp, N).T)
-        score, overflow, dirs = self._forward(
-            self._upload(qmT), self._upload(amT), qlen_d,
-            self._upload(t4T), tlen_d)
-        return score, overflow, backtrack_rle(dirs, qlen_d, tlen_d)
+                self._upload(encode_padded(qseqs, hi - lo, M)), qlen_d,
+                self._upload(encode_padded(tseqs, hi - lo, N)), tlen_d)
+            out = score, overflow, backtrack_flat(dirs, qlen_d, tlen_d)
+        else:
+            qmT, amT = encode_rowT(qseqs, hi - lo, M, self.scheme.mismatch,
+                                   self.scheme.n_mismatch)
+            t4T = np.ascontiguousarray(encode_padded(tseqs, hi - lo, N).T)
+            score, overflow, dirs = self._forward(
+                self._upload(qmT), self._upload(amT), qlen_d,
+                self._upload(t4T), tlen_d)
+            out = score, overflow, backtrack_rle(dirs, qlen_d, tlen_d)
+        return out if rows is None else gather_pairs(mesh, *out)
 
     def _collect(self, qseqs: Sequence[bytes], tseqs: Sequence[bytes],
                  handle) -> List[AlignmentResult]:

@@ -50,9 +50,17 @@ class DeviceKmerIndex:
         self.device = torch.device(device)
         self.wordlength = wordlength
         self.hashsize = 1 << (2 * wordlength)
+        presorted = self._presort(kmer_lists, lengths, mapping)
+        self.blocks = self._pack_blocks(presorted, 0, max(self.n, 1))
+        self._init_codes()
+
+    def _presort(self, kmer_lists: List[np.ndarray], lengths: np.ndarray,
+                 mapping: np.ndarray):
+        """Order positions as the reference heap does and concatenate their
+        k-mers: sets n, perm, seqno_by_pos and length_by_pos, returns the
+        (all_kmers, starts, sizes) that _pack_blocks packs."""
         n = len(kmer_lists)
         self.n = n
-        cap = max(n, 1)
         lengths = np.asarray(lengths, dtype=np.int64)
         mapping = np.asarray(mapping, dtype=np.int64)
         # device position p <-> heap rank p: sorted by (length, seqno) so
@@ -65,13 +73,22 @@ class DeviceKmerIndex:
             if n and sizes.sum() else np.zeros(0, dtype=np.uint32)
         starts = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(sizes, out=starts[1:])
+        self.seqno_by_pos = mapping[perm]
+        self.length_by_pos = lengths[perm]
+        self.perm = perm
+        return all_kmers, starts, sizes
 
-        # shard positions (already in heap order) into blocks
-        self.blocks = []   # (bits_dev (V, words) int32, words, base, nb)
-        base = 0
+    def _pack_blocks(self, presorted, lo: int, hi: int) -> list:
+        """Packed-bit blocks of at most BLOCK_POS positions covering
+        positions [lo, hi), each (bits_dev (V, words) int32, words, base,
+        n_real): block positions past n stay empty."""
+        all_kmers, starts, sizes = presorted
+        n = self.n
         from .. import native
+        blocks = []
+        base = lo
         while True:
-            nb = min(cap - base, self.BLOCK_POS)
+            nb = min(hi - base, self.BLOCK_POS)
             nb_real = max(0, min(n - base, nb))
             words = max(_round_up(max(nb, 1), NBLK) // 32, 640)
             bits = np.zeros((self.hashsize, words), dtype=np.uint32)
@@ -85,14 +102,10 @@ class DeviceKmerIndex:
                     self._pack_bits_numpy(
                         bits, blk_kmers, blk_starts,
                         sizes[base:base + nb_real], nb_real)
-            self.blocks.append((self._to_device(bits), words, base, nb_real))
+            blocks.append((self._to_device(bits), words, base, nb_real))
             base += nb
-            if base >= cap:
-                break
-        self.seqno_by_pos = mapping[perm]
-        self.length_by_pos = lengths[perm]
-        self.perm = perm
-        self._init_codes()
+            if base >= hi:
+                return blocks
 
     def _to_device(self, bits: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.require(
@@ -209,24 +222,24 @@ class DeviceKmerIndex:
         maxk = max((kl.size for kl in query_kmer_lists), default=1)
         maxk = max(_round_up(maxk, 640), 640)
         packed = maxk <= DENSE_MAXK_LIMIT
-        pending = []
-        for lo in range(0, q, self.CHUNK):
-            chunk = query_kmer_lists[lo:lo + self.CHUNK]
-            qp = 128 if len(chunk) <= 128 else self.CHUNK
-            Kbits = self._to_device(pack_query_bits(chunk, qp,
-                                                    self.hashsize))
-            outs = []
-            for bits, words, _, nb_real in self.blocks:
-                fn = dense_topk(self.hashsize, words, qp,
-                                min(k, words * 32), packed_keys=packed)
-                outs.append(fn(Kbits, bits, nb_real))
-            if len(outs) == 1:
-                handle = outs[0]
-            else:
-                handle = merge_blocks(outs, [b for _, _, b, _ in self.blocks],
-                                      k)
-            pending.append((len(chunk), handle))
-        return (q, pending)
+        chunks = [query_kmer_lists[lo:lo + self.CHUNK]
+                  for lo in range(0, q, self.CHUNK)]
+        return (q, [(len(c), self._chunk_topk(c, k, packed)) for c in chunks])
+
+    def _chunk_topk(self, chunk: List[np.ndarray], k: int, packed: bool):
+        """(vals, positions) (qp, k) device tensors of one chunk: K1 and
+        top-k on each block, then the exact merge by global position."""
+        qp = 128 if len(chunk) <= 128 else self.CHUNK
+        Kbits = self._to_device(pack_query_bits(chunk, qp, self.hashsize))
+        outs = []
+        for bits, words, _, nb_real in self.blocks:
+            fn = dense_topk(self.hashsize, words, qp, min(k, words * 32),
+                            packed_keys=packed)
+            outs.append(fn(Kbits, bits, nb_real))
+        bases = [b for _, _, b, _ in self.blocks]
+        if bases == [0]:
+            return outs[0]
+        return merge_blocks(outs, bases, k)
 
     def topk_collect(self, state) -> Tuple[np.ndarray, np.ndarray]:
         q, pending = state

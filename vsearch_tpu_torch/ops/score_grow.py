@@ -17,6 +17,9 @@ which makes torch.topk's descending order exactly the reference min-heap's
 csrc/score_dense.cu) computes the counts and folds the key, over the
 filled 4096-position blocks only (scan_words).
 
+ShardedGrowingKmerIndex spreads the positions over the ranks of a process
+group (parallel/mesh.py) and merges the ranks' top-k with one all-gather.
+
 Exactness gates: counts fit the key (supports(): a query has at most
 MAX_COUNT k-mers, else the caller scores on its host tier) and positions
 fit the ranks (the constructor refuses a capacity above RANK_MAX).
@@ -32,8 +35,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .score_dense import (MAX_COUNT, RANK_MAX, dense_topk_ranked,
-                          pack_query_bits)
+from .score_dense import (MAX_COUNT, POS_SENTINEL, RANK_BITS, RANK_MAX,
+                          dense_topk_ranked, pack_query_bits, ranked_keys)
 from ..utils.maps import CHRMAP_4BIT
 
 
@@ -187,11 +190,17 @@ class GrowingDeviceKmerIndex:
         """(32*words,) int32 device heap rank of each position, RANK_MAX
         where the position is empty."""
         if self._rank_dirty or self._rank_dev is None:
-            rank = np.full(self.words * 32, RANK_MAX, dtype=np.int32)
+            rank = np.full(self.cap, RANK_MAX, dtype=np.int32)
             rank[self._order] = np.arange(self.n, dtype=np.int32)
-            self._rank_dev = torch.from_numpy(rank).to(self.device)
+            self._rank_dev = torch.from_numpy(self._held(rank)).to(
+                self.device)
             self._rank_dirty = False
         return self._rank_dev
+
+    def _held(self, per_pos: np.ndarray) -> np.ndarray:
+        """The entries of a per-position array for the positions this
+        index holds on its device, in its column order: all of them."""
+        return per_pos
 
     def scan_words(self) -> int:
         """Packed words a top-k scans: the whole 4096-position blocks that
@@ -209,22 +218,25 @@ class GrowingDeviceKmerIndex:
         k = min(tophits, self.n)
         if q == 0 or self.n == 0 or k == 0:
             return (q, [])
-        # only the filled prefix is scanned: positions are assigned from 0
-        # in insertion order, whole K4 blocks of 4096 cover the first n,
-        # and k <= n keeps every candidate there (empty positions key to
-        # -1).  A view of bits' row prefixes: no copy.
-        used = self.scan_words()
-        rank = self._ranks()[:used * 32]
-        bits = self.bits[:self.hashsize, :used]
         pending = []
         for lo in range(0, q, self.CHUNK):
             chunk = kmer_lists[lo:lo + self.CHUNK]
             qp = len(chunk)
             Kbits = torch.from_numpy(pack_query_bits(
                 chunk, qp, self.hashsize).view(np.int32)).to(self.device)
-            pending.append((qp, dense_topk_ranked(
-                self.hashsize, used, qp, k)(Kbits, bits, rank)))
+            pending.append((qp, self._chunk_topk(Kbits, qp, k)))
         return (q, pending)
+
+    def _chunk_topk(self, Kbits: torch.Tensor, qp: int, k: int):
+        """(counts, positions) (qp, k) device tensors of one chunk.  Only
+        the filled prefix is scanned: positions are assigned from 0 in
+        insertion order, whole K4 blocks of 4096 cover the first n, and
+        k <= n keeps every candidate there (empty positions key to -1).
+        A view of bits' row prefixes: no copy."""
+        used = self.scan_words()
+        return dense_topk_ranked(self.hashsize, used, qp, k)(
+            Kbits, self.bits[:self.hashsize, :used],
+            self._ranks()[:used * 32])
 
     def topk_cut(self, fetched_pending,
                  minmatches_list: Sequence[int]
@@ -257,3 +269,81 @@ class GrowingDeviceKmerIndex:
         return self.topk_cut(
             [(nq, (v.cpu().numpy(), i.cpu().numpy()))
              for nq, (v, i) in pending], minmatches_list)
+
+
+class ShardedGrowingKmerIndex(GrowingDeviceKmerIndex):
+    """GrowingDeviceKmerIndex whose positions are sharded over the ranks of
+    the process group (vsearch_tpu/ops/score_grow.py:524-570).
+
+    Rank r holds the positions p with p % S == r, as its column p // S:
+    positions are assigned in insertion order, so shards of contiguous
+    positions would leave the upper ranks empty, and idle, until the
+    lower ones filled, while interleaved ones fill together and each
+    rank's filled prefix is a 1/S share.  An append lands only on the
+    rank that owns its position (the owner-masked scatter of
+    _sharded_scatter_fn, score_grow.py:414-441).  Each rank runs K4 over
+    its filled blocks and a local top-k; the rank key is the reference
+    heap's total order, so one all-gather and a top-k of the gathered
+    keys are exact (score_grow.py:444-494).  The host bookkeeping
+    (lengths, seqnos, heap ranks) is the single-device class's, over the
+    global positions, and the sequence codes are replicated."""
+
+    def __init__(self, wordlength: int, capacity: int,
+                 device: torch.device) -> None:
+        from ..parallel.mesh import active_mesh
+        mesh = active_mesh()
+        if mesh is None:
+            raise RuntimeError("ShardedGrowingKmerIndex needs a process "
+                               "group of more than one rank")
+        self.mesh = mesh
+        cap = _round_up(max(capacity, 1), 4096 * mesh.size)
+        if cap > RANK_MAX:
+            raise ValueError("capacity exceeds rank budget")
+        # the device holds this rank's cap / S columns; the host arrays
+        # cover every position
+        super().__init__(wordlength, cap // mesh.size, device)
+        self.cap = cap
+        self.lengths = np.zeros(cap, dtype=np.int64)
+        self.seqnos = np.zeros(cap, dtype=np.int64)
+
+    def _scatter(self, rows: np.ndarray, pos: np.ndarray) -> None:
+        mine = pos % self.mesh.size == self.mesh.rank
+        super()._scatter(rows[mine], pos[mine] // self.mesh.size)
+
+    def _held(self, per_pos: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(per_pos[self.mesh.rank::self.mesh.size])
+
+    def scan_words(self) -> int:
+        """The whole K4 blocks of this rank's filled columns."""
+        n_local = max(0, -(-(self.n - self.mesh.rank) // self.mesh.size))
+        return _round_up(n_local, 4096) // 32
+
+    def _chunk_topk(self, Kbits: torch.Tensor, qp: int, k: int):
+        """This rank's top-k (k keys, padded with -1 where it holds fewer
+        filled columns), then the top-k of every rank's: the keys carry
+        the global position in their low 32 bits."""
+        used = self.scan_words()
+        size, rank = self.mesh.size, self.mesh.rank
+        key = torch.full((qp, k), -(1 << 32), dtype=torch.int64,
+                         device=self.device)
+        kk = min(k, used * 32)
+        if kk:
+            v, col = torch.topk(ranked_keys(
+                Kbits, self.bits[:self.hashsize, :used],
+                self._ranks()[:used * 32]), kk, dim=1)
+            key[:, :kk] = (v.to(torch.int64) << 32) \
+                | (col.to(torch.int64) * size + rank)
+        top, _ = torch.topk(self.mesh.all_gather(key, 1), k, dim=1)
+        v = (top >> 32).to(torch.int32)
+        valid = v >= 0
+        return (torch.where(valid, v >> RANK_BITS, torch.full_like(v, -1)),
+                torch.where(valid, (top & 0xFFFFFFFF).to(torch.int32),
+                            torch.full_like(v, POS_SENTINEL)))
+
+
+def growing_index_class():
+    """The growing index of this process: sharded over the ranks of a
+    process group, else on the one device."""
+    from ..parallel.mesh import active_mesh
+    return (ShardedGrowingKmerIndex if active_mesh() is not None
+            else GrowingDeviceKmerIndex)
