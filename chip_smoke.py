@@ -33,7 +33,10 @@ line):
    filled prefix its top-k scans (896 words at the cell's 25 000
    centroids), K2 and K3 at the
    cluster prefetch's shape, K2m and K5 on the allpairs cell's first
-   batch (W=400, B=4096; K5 also right after a fresh K2m launch wrote its
+   batch (W=400, B=4096; K2m's 16-bit body as routed and its 32-bit body
+   through a private argument of the wrapper, each against the plain
+   version and timed in turns, and against each other on three later
+   batches; K5 also right after a fresh K2m launch wrote its
    planes, ms_after_k2m, beside its entries a lane and the windows a
    lane that window_rounds models), K6 and
    K7 under --mismatch -200 on the search prefetch's top-1 pairs (B=512,
@@ -53,7 +56,8 @@ line):
    centroids byte-equal; then allpairs_global on 48 sequences with seven
    option sets, on cuda and on cpu, every output byte-equal, K2m and K5
    launched on the stats pipeline's six (one with --match 220, where
-   some pairs overflow the 16-bit forward, one with --minsl 0.8, where
+   some pairs overflow the 16-bit forward and K2m takes its 32-bit body,
+   the others its 16-bit body; one with --minsl 0.8, where
    the unaligned gate filters pairs) and not on --acceptall (the generic
    path); then the five chimera verbs on a seeded 800-sequence
    workload (tests/chimera_workload.py; chimeras_denovo also with
@@ -92,9 +96,11 @@ line):
    K3's device ms with the fills that zero its ops.
    Allpairs: tools/bench_scale.py's allpairs_2000 cell (2000 random
    400 nt sequences, seed 17, 1 999 000 pairs) through --allpairs_global
-   --id 0.5 --blast6out, one timed run with the launch counts and the
-   pipeline's pair counts read around it, then the same run under
-   torch.profiler.  usearch_global under --mismatch -200: the bench
+   --id 0.5 --blast6out, timed runs in turns as routed (K2m's 16-bit
+   body once a batch), through its 32-bit body and as routed again, with
+   the launch counts and the pipeline's pair counts read around each and
+   every blast6 byte-equal, its first 64 sequences on cuda and on cpu,
+   byte-equal, then the routed run under torch.profiler.  usearch_global under --mismatch -200: the bench
    dataset again, one warm-up, one timed run with the launch counts, one
    traced run.  Chimera: tools/bench_scale.py's uchime3_denovo_50k cell
    (12 500 families x 4 members x 400 nt, seed 17) through
@@ -131,6 +137,7 @@ The last line is {"ok": true, "device": {...}}.  Needs one CUDA device;
 exits non-zero without one.  Imports nothing of jax or vsearch_tpu.
 """
 
+import functools
 import json
 import os
 import pathlib
@@ -142,12 +149,20 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent
 WORK = REPO / "build" / "vsearch_tpu_torch" / "smoke"
 
-# published H100 SXM peaks (dense): HBM bytes/s and int8 tensor ops/s;
-# int32 ops/s outside the tensor cores is half the published 67e12
-# float32 rate (an SM has half as many int32 lanes as float32 lanes)
+# published H100 SXM peaks (dense): HBM bytes/s and int8 tensor ops/s
 HBM_BPS = 3.35e12
 INT8_TC_OPS = 1979e12
-INT32_OPS = 33.5e12
+# integer operations outside the tensor cores: an SM's integer pipes take
+# 64 lanes of an instruction a clock (tools/int_rate.py: IADD3, VIMNMX,
+# LOP3, PRMT, IMAD and SHF alike), and the three-input forms do two
+# operations each (IADD3 two adds, VIMNMX3 two maxes, VIADDMNMX an add
+# and a max), as an FMA does two float operations: chained adds and
+# min/max complete at 128 lanes an SM a clock there.  So the integer
+# operation rate is 128 x the SMs x the maximum SM clock, read from the
+# card by int_ops
+INT_LANES_PER_SM = 128
+# (SMs, maximum SM clock in Hz) of the card, read once
+_CARD_CLOCK = None
 # int32 operations of one K2 cell update (csrc/nw_rowscan.cu inner loop)
 NW_CELL_OPS = 20
 # pairs the counted K7 build (flat_windows) counts windows for
@@ -219,13 +234,18 @@ SHARDED_FORCED = "BatchAligner._native_cells_crossover = lambda self: 0\n"
 # the kernels each main path must launch
 SEARCH_KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
 CLUSTER_KERNELS = ("score_ranked", "nw_rowscan", "nw_backtrack")
-ALLPAIRS_KERNELS = ("nw_rowscan_mr", "nw_stats")
+ALLPAIRS_KERNELS = ("nw_rowscan_mr16", "nw_stats")
 SEARCH_200_KERNELS = ("score_dense", "nw_wavefront", "nw_backtrack_flat")
 # the alignment kernels of each wire
 ROW_WIRE = ("nw_rowscan", "nw_backtrack")
 CODES_WIRE = ("nw_wavefront", "nw_backtrack_flat")
 # int32 operations of one K2m cell update (K2's and the match plane's)
 NW_MR_CELL_OPS = 25
+# K2m's two bodies: 16-bit (two pairs a warp) where nw_rowscan.rowscan16
+# holds, as on the allpairs cell; 32-bit elsewhere (--match 220)
+K2M_BODIES = ("nw_rowscan_mr16", "nw_rowscan_mr")
+# sequences of the allpairs cell run also on cpu, cuda against cpu
+AP_CPU_SEQS = 64
 
 # BatchAligner's routing estimates (device call overhead, host cell rate)
 # as a fresh process starts with them; main() reads them before any run
@@ -285,6 +305,30 @@ def timed_after(first, then, reps: int) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def int_ops(fits16: bool = False) -> float:
+    """Integer lane operations/s of the card: INT_LANES_PER_SM x its SMs
+    x its maximum SM clock (nvidia-smi clocks.max.sm); twice that where the
+    function's values fit 16 bits, two halves a lane (the 16x2 DPX and
+    SIMD forms), which is the least time the card could take."""
+    import torch
+    global _CARD_CLOCK
+    if _CARD_CLOCK is None:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0]
+        _CARD_CLOCK = (torch.cuda.get_device_properties(0)
+                       .multi_processor_count, float(mhz) * 1e6)
+    sms, hz = _CARD_CLOCK
+    return INT_LANES_PER_SM * sms * hz * (2 if fits16 else 1)
+
+
+def walk_fits16(M: int, N: int) -> bool:
+    """A backtrack's values (coordinates below M + N, run counts up to
+    4095, stats up to M + N) fit 16 bits."""
+    return M + N <= 32767
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -776,7 +820,8 @@ def nw_records(gpu, key, scheme, args, tag: str):
     cells = M * N * B
     k2_bytes = (sum(a.numel() * a.element_size() for a in args)
                 + s_k.numel() * 4 + o_k.numel() + d_k.numel() * 2)
-    bound_ms, bound_by = bound(k2_bytes, cells * NW_CELL_OPS, INT32_OPS)
+    bound_ms, bound_by = bound(k2_bytes, cells * NW_CELL_OPS, int_ops(
+        nw_rowscan.fits_int16(key, M, N)))
     out = [{"kernel": "nw_rowscan" + tag, "shape": {"B": B, "M": M, "N": N},
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -809,7 +854,8 @@ def nw_records(gpu, key, scheme, args, tag: str):
     # data-dependent: the dirs cells on the walked paths (drains read
     # none), lengths, ops out
     k3_bytes = reads * 2 + 2 * B * 4 + ops_k.numel() * 2
-    bound_ms, bound_by = bound(k3_bytes, steps * 10, INT32_OPS)
+    bound_ms, bound_by = bound(k3_bytes, steps * 10,
+                               int_ops(walk_fits16(M, N)))
     out.append({"kernel": "nw_backtrack" + tag,
                 "shape": {"B": B, "M": M, "N": N, "steps": steps,
                           "reads": reads},
@@ -829,7 +875,8 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
     plain version, timed, with its bound.  k2_ms, K2's time on the same
     pairs under the default scheme, rides along as a note."""
     import torch
-    from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_wavefront
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch, nw_rowscan
+    from vsearch_tpu_torch.ops import nw_wavefront
     from vsearch_tpu_torch.ops.nw import ScoreScheme
     q4, qlen, t4, tlen = args
     B, M = q4.shape
@@ -855,7 +902,8 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
                  * tlen.clamp(0, N).to(torch.int64)).sum())
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + s_k.numel() * 4 + o_k.numel() + d_k.numel())
-    bound_ms, bound_by = bound(nbytes, valid * NW_CELL_OPS, INT32_OPS)
+    bound_ms, bound_by = bound(nbytes, valid * NW_CELL_OPS, int_ops(
+        nw_rowscan.fits_int16(key, M, N)))
     out = [{"kernel": "nw_wavefront" + tag,
             "shape": {"B": B, "M": M, "N": N, "D": d_k.shape[0],
                       "Ms": d_k.shape[2], "cells": valid},
@@ -889,7 +937,8 @@ def wavefront_records(gpu, key, args, tag: str, k2_ms: float):
     # data-dependent: one dirs byte a cell on the walked paths (drains
     # read none), lengths, ops out
     nbytes = reads + 2 * B * 4 + ops_k.numel() * 2
-    bound_ms, bound_by = bound(nbytes, steps * 10, INT32_OPS)
+    bound_ms, bound_by = bound(nbytes, steps * 10,
+                               int_ops(walk_fits16(M, N)))
     out.append({"kernel": "nw_backtrack_flat" + tag,
                 "shape": {"B": B, "M": M, "N": N, "steps": steps,
                           "reads": reads},
@@ -1197,8 +1246,11 @@ def flat_windows(dirs, qlen, tlen, ref):
 
 def phase_allpairs_kernels(gpu, ap_path):
     """K2m and K5 on the allpairs cell's first batch (allpairs_first_batch),
-    each against its plain version; K5 reads K2m's planes.  No single
-    PyTorch call computes either function."""
+    each against its plain version; K5 reads K2m's planes.  K2m as routed
+    (its 16-bit body) and its 32-bit body on the same inputs, each
+    held against the plain version and timed in turns (16, 32, 32, 16),
+    and against each other on three later batches.  No single PyTorch call
+    computes either function."""
     import numpy as np
     import torch
     from vsearch_tpu_torch import device
@@ -1219,21 +1271,48 @@ def phase_allpairs_kernels(gpu, ap_path):
               torch.empty((W, W, B), dtype=torch.uint8, device=dev))
     out = {}
 
+    require(nw_rowscan.rowscan16(key, W, W),
+            "the allpairs cell is outside K2m's 16-bit envelope")
+
+    def body(name):
+        """K2m through one body on the batch's inputs (a private argument
+        of the wrapper: the route would pick the 16-bit body)."""
+        return lambda a=args, o=planes: nw_rowscan._forward(
+            key, a[0], a[1], a[3], a[4], a[5], a[2], o, _body=name)
+
     cuda_lib.reset_launches()
     got = fwd(*args, out=planes)
+    launches = dict(cuda_lib.LAUNCHES)
+    require(launches["nw_rowscan_mr16"] == 1
+            and launches["nw_rowscan_mr"] == 0,
+            "K2m took its 32-bit body on the allpairs batch")
     ref = nw_rowscan.forward_plain(key, score_min, track, args[0], args[1],
                                    qlen, args[4], tlen, args[2])
     torch.cuda.synchronize()
     err = max(max_abs_err(g, r) for g, r in zip(got, ref))
-    require(err == 0, "K2m differs from its plain version")
-    launches = cuda_lib.LAUNCHES["nw_rowscan_mr"]
-    del ref
-    ms = timed(lambda: fwd(*args, out=planes), 3)
+    require(err == 0, "K2m (16-bit body) differs from its plain version")
+    # the 32-bit body on the same inputs, into planes of its own
+    old_planes = tuple(torch.empty_like(p) for p in planes)
+    cuda_lib.reset_launches()
+    old = body("nw_rowscan_mr")(o=old_planes)
+    torch.cuda.synchronize()
+    require(cuda_lib.LAUNCHES["nw_rowscan_mr"] == 1,
+            "the private argument did not take the 32-bit body")
+    err_old = max(max_abs_err(g, r) for g, r in zip(old, ref))
+    require(err_old == 0, "K2m (32-bit body) differs from its plain "
+            "version")
+    del ref, old, old_planes
+    torch.cuda.empty_cache()
+    # the two bodies in turns on the same inputs: 16, 32, 32, 16
+    turns = {name: [] for name in K2M_BODIES}
+    for name in K2M_BODIES + K2M_BODIES[::-1]:
+        turns[name].append(timed(body(name), 3))
     plain_ms = timed(lambda: nw_rowscan.forward_plain(
         key, score_min, track, args[0], args[1], qlen, args[4], tlen,
         args[2]), 1)
     # K2 on the same inputs, for what the match plane costs at this shape,
-    # and K2m on three later batches of the triangle, one launch each
+    # and K2m on three later batches of the triangle, one launch each,
+    # both bodies equal there
     k2 = nw_rowscan.build_forward(key)
     k2_args = (args[0], args[1], qlen, args[4], tlen)
     k2_ms = timed(lambda: k2(*k2_args), 3)
@@ -1242,26 +1321,42 @@ def phase_allpairs_kernels(gpu, ap_path):
                            torch.from_numpy(tpos[k * B:(k + 1) * B]).to(dev))
              for k in (100, 200, 300)]
     later_planes = tuple(torch.empty_like(p) for p in planes)
+    err_later = 0
+    for a in later:
+        new_out = [t.clone() for t in body("nw_rowscan_mr16")(a, later_planes)]
+        old_out = body("nw_rowscan_mr")(a, later_planes)
+        err_later = max([err_later] + [max_abs_err(g, r)
+                                       for g, r in zip(new_out, old_out)])
+        del new_out, old_out
+    require(err_later == 0, "K2m's bodies differ on a later batch")
 
-    def run_later():
+    def run_later(name):
         for a in later:
-            fwd(*a, out=later_planes)
-    later_ms = timed(run_later, 1) / len(later)
+            body(name)(a, later_planes)
+    later_ms = {name: timed(lambda: run_later(name), 1) / len(later)
+                for name in K2M_BODIES}
     del later_planes
     torch.cuda.empty_cache()
     cells = W * W * B
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + B * 4 + B + cells * 3)
-    bound_ms, bound_by = bound(nbytes, cells * NW_MR_CELL_OPS, INT32_OPS)
-    out["nw_rowscan_mr"] = {
-        "kernel": "nw_rowscan_mr", "shape": {"B": B, "M": W, "N": W},
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "gcups": cells / (ms * 1e-3) / 1e9, "max_abs_err": err,
-        "mr_max": int(got[3].max()), "nw_rowscan_same_inputs_ms": k2_ms,
-        "later_batches_ms": later_ms,
-        "launches": launches, "card": gpu}
-    emit(out["nw_rowscan_mr"])
+    # the function's bound, the same for both bodies: its values fit 16
+    # bits, two a lane
+    bound_ms, bound_by = bound(nbytes, cells * NW_MR_CELL_OPS, int_ops(
+        nw_rowscan.fits_int16(key, W, W)))
+    for name, errs in (("nw_rowscan_mr16", err), ("nw_rowscan_mr", err_old)):
+        ms = sum(turns[name]) / len(turns[name])
+        out[name] = {
+            "kernel": name, "shape": {"B": B, "M": W, "N": W},
+            "ms": ms, "ms_turns": turns[name], "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "int_ops_per_s": int_ops(False),
+            "gcups": cells / (ms * 1e-3) / 1e9, "max_abs_err": errs,
+            "max_abs_err_bodies_later": err_later,
+            "mr_max": int(got[3].max()), "nw_rowscan_same_inputs_ms": k2_ms,
+            "later_batches_ms": later_ms[name],
+            "launches": launches[name], "card": gpu}
+        emit(out[name])
 
     # K5 on those planes; K3 walks the same path, so its nonzero ops
     # count the walk's entries (and its windows at K5's span)
@@ -1293,7 +1388,8 @@ def phase_allpairs_kernels(gpu, ap_path):
     # data-dependent: the dirs cells on the walked paths (drains read
     # none), the mr cells of their diagonal entries, lengths, stats out
     nbytes = reads * 2 + diagonal + 2 * B * 4 + st.numel() * 4
-    bound_ms, bound_by = bound(nbytes, steps * 15, INT32_OPS)
+    bound_ms, bound_by = bound(nbytes, steps * 15,
+                               int_ops(walk_fits16(W, W)))
     cols = st.to(torch.float64).mean(dim=0).tolist()
     out["nw_stats"] = {
         "kernel": "nw_stats", "shape": {"B": B, "M": W, "N": W,
@@ -1315,15 +1411,17 @@ def phase_allpairs_kernels(gpu, ap_path):
 
 class allpairs_counts:
     """Counts, in the allpairs command's fast path, the pairs it sends
-    through the device pipeline, the overflow pairs, the pairs the stats
-    accept and the pairs it aligns again through SearchContext.align_pairs
+    through the device pipeline and the batches it cuts them into
+    (AllPairsDevice.batch), the overflow pairs, the pairs the stats accept
+    and the pairs it aligns again through SearchContext.align_pairs
     (overflow and accepted)."""
 
     def __enter__(self):
         from vsearch_tpu_torch.commands import allpairs
         from vsearch_tpu_torch.core.search import SearchContext
         from vsearch_tpu_torch.ops.allpairs_dev import AllPairsDevice
-        self.pairs = self.overflow = self.accepted = self.realigned = 0
+        self.pairs = self.batches = 0
+        self.overflow = self.accepted = self.realigned = 0
         self._saved = (AllPairsDevice.run, allpairs._accept_mask,
                        SearchContext.align_pairs)
         run, accept, align = self._saved
@@ -1331,6 +1429,7 @@ class allpairs_counts:
         def counted_run(this, qpos, tpos):
             over, stats = run(this, qpos, tpos)
             self.pairs += len(qpos)
+            self.batches += -(-len(qpos) // this.batch)
             self.overflow += int(over.sum())
             self._over = over
             return over, stats
@@ -1357,7 +1456,8 @@ class allpairs_counts:
          SearchContext.align_pairs) = self._saved
 
     def record(self) -> dict:
-        return {"pairs": self.pairs, "overflow_pairs": self.overflow,
+        return {"pairs": self.pairs, "batches": self.batches,
+                "overflow_pairs": self.overflow,
                 "accepted_by_stats": self.accepted,
                 "realigned_pairs": self.realigned}
 
@@ -1639,9 +1739,10 @@ def phase_allpairs_parity(gpu):
     """allpairs_global on the 48 sequences of write_pairs_workload, seven
     option sets, each on cuda and on cpu (the plain versions): every output
     byte-equal.  The six stats-pipeline sets must launch K2m and K5 (and
-    no plain version), the overflow set with some pairs and not all
-    overflowing, the gate set with the gate filtering pairs; --acceptall
-    takes the generic path and launches neither."""
+    no plain version): K2m's 16-bit body, but its 32-bit body in the
+    overflow set (--match 220, some pairs and not all overflowing); the
+    gate set with the gate filtering pairs; --acceptall takes the generic
+    path and launches neither.  Returns the overflow set's launches."""
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.ops import cuda_lib
     d = WORK / "aparity"
@@ -1691,13 +1792,20 @@ def phase_allpairs_parity(gpu):
             require(not any(cuda_lib.PLAIN_CALLS.values()),
                     "a plain version ran on the card (%s)" % name)
             fast = name != "acceptall"
-            require(all((launches[k] > 0) == fast for k in ALLPAIRS_KERNELS),
+            # --match 220 is outside K2m's 16-bit envelope: its 32-bit body
+            k2m = ("nw_rowscan_mr" if name == "match_overflow"
+                   else "nw_rowscan_mr16")
+            require((launches[k2m] > 0) == fast
+                    and (launches["nw_stats"] > 0) == fast
+                    and sum(launches[k] for k in K2M_BODIES)
+                    == launches[k2m],
                     "K2m/K5 launches do not fit the path (%s)" % name)
             require_wire(launches, False, "allpairs " + name)
             if name == "match_overflow":
                 require(0 < counts.overflow < counts.pairs,
                         "%d of %d pairs overflowed under --match 220"
                         % (counts.overflow, counts.pairs))
+                match_220 = launches
             if name == "minsl_gate":
                 require(0 < counts.pairs < n_pairs,
                         "the gate passed %d of %d pairs"
@@ -1708,6 +1816,9 @@ def phase_allpairs_parity(gpu):
                 "cuda and cpu allpairs outputs differ (%s)" % name)
         emit({"phase": "allpairs_parity", "options": name, "equal": True,
               "bytes": [len(b) for b in outs["cuda"]], "card": gpu})
+    # the launches of the --match 220 path, the one that takes K2m's
+    # 32-bit body
+    return match_220
 
 
 def phase_chimera_parity(gpu):
@@ -2481,71 +2592,117 @@ def phase_cluster_full(gpu, amp_path):
 
 def phase_allpairs_full(gpu, ap_path):
     """The allpairs cell: tools/bench_scale.py's allpairs_2000 shape
-    through --allpairs_global --id 0.5 --blast6out, timed once (the kernels
-    are built and loaded by phase 2), the launches and the pipeline's pair
-    counts read around it; then the same run under torch.profiler with the
-    host phase timer on."""
+    through --allpairs_global --id 0.5 --blast6out, timed in turns as
+    routed (K2m's 16-bit body, once a batch), through K2m's 32-bit body
+    (its private body argument, as phase 2 takes it), and as routed again,
+    with the launches and the pipeline's pair and batch counts read around
+    each: every blast6 byte-equal.  Then its first AP_CPU_SEQS sequences on cuda and on cpu,
+    byte-equal; then the cell as routed under torch.profiler with the host
+    phase timer on."""
     import torch
     from vsearch_tpu_torch import cli
-    from vsearch_tpu_torch.ops import cuda_lib
+    from vsearch_tpu_torch.ops import cuda_lib, nw_rowscan
     from vsearch_tpu_torch.utils import phasetimer
     n_pairs = AP_SEQS * (AP_SEQS - 1) // 2
     argv = ["--allpairs_global", str(ap_path)] + AP_ARGS
 
-    def run(tag):
+    def run(tag, path=ap_path, device="cuda"):
         fresh_router(argv)
         t0 = time.perf_counter()
-        rc = cli.main(["--allpairs_global", str(ap_path), "--blast6out",
+        rc = cli.main(["--allpairs_global", str(path), "--blast6out",
                        str(WORK / ("%s.b6" % tag))] + AP_ARGS,
-                      device="cuda")
-        torch.cuda.synchronize()
+                      device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
         require(rc == 0, "allpairs_global failed")
         return time.perf_counter() - t0
 
     start_crossover = fresh_router(argv)
-    torch.cuda.reset_peak_memory_stats()
+    forward = nw_rowscan._forward
+    walls = {}
+    for tag, body in (("allpairs", "nw_rowscan_mr16"),
+                      ("allpairs_32bit", "nw_rowscan_mr"),
+                      ("allpairs_again", "nw_rowscan_mr16")):
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        if body == "nw_rowscan_mr":
+            # K2m's private body argument, as phase 2 takes it (K2's
+            # calls, without the raw codes, do not read it)
+            nw_rowscan._forward = functools.partial(forward, _body=body)
+        try:
+            with allpairs_counts() as counts, walk_round_k2() as walk:
+                elapsed = run(tag)
+        finally:
+            nw_rowscan._forward = forward
+        launches = dict(cuda_lib.LAUNCHES)
+        walls[body] = walls.get(body, []) + [elapsed]
+        batches = counts.batches
+        require(not any(cuda_lib.PLAIN_CALLS.values()),
+                "a plain version ran on the allpairs path")
+        require(batches > 0 and launches[body] == batches
+                and launches["nw_stats"] == batches
+                and sum(launches[k] for k in K2M_BODIES) == batches,
+                "K2m launched %s, K5 %d times for %d batches (%s)"
+                % ({k: launches[k] for k in K2M_BODIES},
+                   launches["nw_stats"], batches, tag))
+        require_wire(launches, False, "allpairs_full")
+        require(counts.pairs == n_pairs, "the pipeline saw %d pairs"
+                % counts.pairs)
+        lines = (WORK / ("%s.b6" % tag)).read_bytes().splitlines()
+        require(len(lines) == counts.accepted,
+                "blast6 has %d lines for %d accepted pairs"
+                % (len(lines), counts.accepted))
+        for ln in lines:
+            q, t = ln.split(b"\t")[:2]
+            require(int(q[1:]) < int(t[1:]),
+                    "blast6 line with query >= target")
+        if tag != "allpairs":
+            require((WORK / ("%s.b6" % tag)).read_bytes()
+                    == (WORK / "allpairs.b6").read_bytes(),
+                    "the %s blast6 differs from the routed run's" % tag)
+        emit({"phase": "allpairs_full", "run": tag, "k2m_body": body,
+              "sequences": AP_SEQS, "seq_len": AP_LEN, "seconds": elapsed,
+              "pairs_per_s": n_pairs / elapsed, "blast6_lines": len(lines),
+              **counts.record(), "launches": launches,
+              "nw_rowscan_walk_rounds": walk.count,
+              "crossover_cells_start": start_crossover,
+              "crossover_cells_end": crossover(argv),
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "card": gpu})
+        if tag == "allpairs":
+            routed = launches
+
+    # the cell's first sequences on cuda and on cpu (the plain versions)
+    head = WORK / "ap_head.fasta"
+    head.write_bytes(b"".join(ap_path.read_bytes().splitlines(True)
+                              [:2 * AP_CPU_SEQS]))
     cuda_lib.reset_launches()
-    with allpairs_counts() as counts, walk_round_k2() as walk:
-        elapsed = run("allpairs")
-    launches = dict(cuda_lib.LAUNCHES)
-    end_crossover = crossover(argv)
-    require(not any(cuda_lib.PLAIN_CALLS.values()),
-            "a plain version ran on the allpairs path")
-    for name in ALLPAIRS_KERNELS:
-        require(launches[name] > 0,
-                "kernel %s was not launched on the allpairs path" % name)
-    require_wire(launches, False, "allpairs_full")
-    require(counts.pairs == n_pairs, "the pipeline saw %d pairs"
-            % counts.pairs)
-    lines = (WORK / "allpairs.b6").read_bytes().splitlines()
-    require(len(lines) == counts.accepted,
-            "blast6 has %d lines for %d accepted pairs"
-            % (len(lines), counts.accepted))
-    for ln in lines:
-        q, t = ln.split(b"\t")[:2]
-        require(int(q[1:]) < int(t[1:]), "blast6 line with query >= target")
-    emit({"phase": "allpairs_full", "sequences": AP_SEQS,
-          "seq_len": AP_LEN, "seconds": elapsed,
-          "pairs_per_s": n_pairs / elapsed, "blast6_lines": len(lines),
-          **counts.record(), "launches": launches,
-          "nw_rowscan_walk_rounds": walk.count,
-          "crossover_cells_start": start_crossover,
-          "crossover_cells_end": end_crossover,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "card": gpu})
+    cuda_s = run("ap_head_cuda", head)
+    head_launches = dict(cuda_lib.LAUNCHES)
+    cpu_s = run("ap_head_cpu", head, "cpu")
+    require(head_launches["nw_rowscan_mr16"] > 0,
+            "K2m's 16-bit body did not run on the cell's first sequences")
+    require((WORK / "ap_head_cuda.b6").read_bytes()
+            == (WORK / "ap_head_cpu.b6").read_bytes(),
+            "cuda and cpu blast6 differ on the cell's first sequences")
+    emit({"phase": "allpairs_full_cpu_parity", "sequences": AP_CPU_SEQS,
+          "equal": True, "cuda_seconds": cuda_s, "cpu_seconds": cpu_s,
+          "launches": head_launches, "card": gpu})
+
     phasetimer.ENABLED = True
     phasetimer.reset()
-    traced = trace(lambda: run("allpairs_traced"))
+    traced = trace(lambda: run("allpairs_traced"),
+                   ("nw_rowscan_mr16_kernel", "nw_rowscan_kernel<true",
+                    "nw_stats"))
     phasetimer.ENABLED = False
-    by_name = traced["device_ms_by_name"]
-    k2m = sum(ms for name, ms in by_name.items()
-              if "nw_rowscan_kernel<true" in name)
-    k5 = sum(ms for name, ms in by_name.items() if "nw_stats" in name)
+    k2m = traced["device_ms_matching"]["nw_rowscan_mr16_kernel"]
     emit(dict({"phase": "allpairs_full_traced"}, **traced,
+              walls=walls, k2m_body="nw_rowscan_mr16", k2m_ms=k2m,
               nw_rowscan_mr_share=k2m / 1e3 / traced["seconds"],
-              nw_rowscan_mr_ms_per_launch=k2m / launches["nw_rowscan_mr"],
-              nw_stats_ms=k5, host_phase_s=dict(phasetimer.acc), card=gpu))
-    return launches
+              nw_rowscan_mr_ms_per_launch=k2m / routed["nw_rowscan_mr16"],
+              nw_stats_ms=traced["device_ms_matching"]["nw_stats"],
+              host_phase_s=dict(phasetimer.acc), card=gpu))
+    return routed
 
 
 def main() -> int:
@@ -2574,7 +2731,7 @@ def main() -> int:
     kern.update(phase_allpairs_kernels(gpu, ap_path))
     phase_parity(gpu)
     phase_cluster_parity(gpu)
-    phase_allpairs_parity(gpu)
+    match_220 = phase_allpairs_parity(gpu)
     phase_chimera_parity(gpu)
     phase_api_parity(gpu)
     phase_pipeline_parity(gpu)
@@ -2585,6 +2742,8 @@ def main() -> int:
         gpu, db_path, q_path, MISMATCH_200, "full_mm200")
     by_path["cluster_size"] = phase_cluster_full(gpu, amp_path)
     by_path["allpairs_global"] = phase_allpairs_full(gpu, ap_path)
+    # phase 3's --match 220 allpairs run, the path of K2m's 32-bit body
+    by_path["allpairs_global_match_220"] = match_220
     by_path["uchime3_denovo"], records = phase_chimera_full(gpu, chim_path)
     kern.update({o["kernel"]: o for o in records})
     by_path.update(phase_sharded(gpu, sharded_runs(
@@ -2602,6 +2761,8 @@ def main() -> int:
                          "vsearch_tpu/ops/score_mxu.py:266"),
         "nw_rowscan": ("vsearch_tpu_torch/csrc/nw_rowscan.cu",
                        "vsearch_tpu/ops/nw_pallas2.py:387"),
+        "nw_rowscan_mr16": ("vsearch_tpu_torch/csrc/nw_rowscan.cu",
+                            "vsearch_tpu/ops/nw_pallas2.py:387"),
         "nw_rowscan_mr": ("vsearch_tpu_torch/csrc/nw_rowscan.cu",
                           "vsearch_tpu/ops/nw_pallas2.py:387"),
         "nw_backtrack": ("vsearch_tpu_torch/csrc/nw_backtrack.cu",

@@ -261,3 +261,130 @@ def test_allpairs_matches_jax(pairs_fasta, tmp_path, name,  # noqa: F811
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
     assert not [m for m in loaded
                 if m == "vsearch_tpu" or m.startswith("vsearch_tpu.")]
+
+
+def _key_of(**opts) -> tuple:
+    """The scheme key the CLI's fixups give for these Parameters options."""
+    from vsearch_tpu_torch.ops.nw import ScoreScheme
+    from vsearch_tpu_torch.params import Parameters
+    p = Parameters()
+    p.apply_defaults_fixups()
+    for k, v in opts.items():
+        setattr(p, k, v)
+    s = ScoreScheme.from_params(p)
+    return (s.match, s.mismatch, s.go_q_left, s.go_t_left, s.go_q_int,
+            s.go_t_int, s.go_q_right, s.go_t_right, s.ge_q_left,
+            s.ge_t_left, s.ge_q_int, s.ge_t_int, s.ge_q_right, s.ge_t_right,
+            s.n_mismatch)
+
+
+def test_rowscan16_route_default_and_match_220():
+    """The allpairs cell (the default scheme at 400 x 400) takes K2m's
+    16-bit body; --match 220, whose scores pass 16 bits, does not."""
+    assert nw_rowscan.rowscan16(_key_of(), 400, 400)
+    assert not nw_rowscan.rowscan16(_key_of(opt_match=220), 400, 400)
+    # gap rewards and substitution scores past the V table's seven bits
+    # are refused whatever the shape
+    assert not nw_rowscan.rowscan16(_key_of(opt_mismatch=-65), 16, 16)
+    assert not nw_rowscan.rowscan16((2, -4, -1) + _key_of()[3:], 16, 16)
+
+
+def _box_extremes(key, q, t, qlen, tlen):
+    """(min, max) over the whole M x N box, boundaries included, of H, E,
+    F, htemp, htemp2 and the intermediates E - R_q, F - R_t, h - QR_t and
+    htemp2 - QR_q of the row-scan forward's recurrences, for pairs of
+    4-bit codes q (B, M) and t (B, N) padded with code 0, in int64.  A
+    row's E is its max-plus prefix: E(j) = max(E0 - jR, max over k < j of
+    htemp2(k) - QR - (j - 1 - k)R)."""
+    (match, mismatch, go_q_l, go_t_l, go_q_i, go_t_i, go_q_r, go_t_r,
+     ge_q_l, ge_t_l, ge_q_i, ge_t_i, ge_q_r, ge_t_r, n_mismatch) = key
+    B, M = q.shape
+    N = t.shape[1]
+    single = np.zeros(16, dtype=bool)
+    single[[1, 2, 4, 8]] = True
+    qq, tt = q[:, :, None], t[:, None, :]
+    V = np.where(qq == tt, match, mismatch)
+    V = np.where(~single[qq] | ~single[tt], 0, V)
+    if n_mismatch:
+        V = np.where((qq == 15) | (tt == 15), mismatch, V)
+    V = V.astype(np.int64)                                  # (B, M, N)
+    j = np.arange(N, dtype=np.int64)
+    right = j[None, :] == (tlen[:, None] - 1)               # (B, N)
+    QR_t = np.where(right, go_t_r + ge_t_r, go_t_i + ge_t_i)
+    R_t = np.where(right, ge_t_r, ge_t_i)
+    H = np.broadcast_to(-(go_q_l + (j + 1) * ge_q_l), (B, N)).copy()
+    F = H - QR_t
+    lo, hi = min(H.min(), F.min()), max(H.max(), F.max())
+    for i in range(M):
+        last = (qlen == i + 1)[:, None]
+        QR_q = np.where(last, go_q_r + ge_q_r, go_q_i + ge_q_i)
+        R_q = np.where(last, ge_q_r, ge_q_i)
+        left = 0 if i == 0 else -(go_t_l + i * ge_t_l)
+        diag = np.concatenate((np.full((B, 1), left), H[:, :-1]), axis=1)
+        htemp = diag + V[:, i]
+        htemp2 = np.maximum(htemp, F)
+        E0 = -(go_t_l + (i + 1) * ge_t_l) - QR_q
+        P = np.maximum.accumulate(htemp2 + j * R_q, axis=1)
+        Ps = np.concatenate((np.full((B, 1), -(1 << 40)), P[:, :-1]), axis=1)
+        E = np.maximum(E0 - j * R_q, Ps - (QR_q - R_q) - j * R_q)
+        h = np.maximum(E, htemp2)
+        Fx = F - R_t
+        F = np.maximum(Fx, h - QR_t)
+        for v in (E0, left, htemp, htemp2, E, h, F, E - R_q, Fx, h - QR_t,
+                  htemp2 - QR_q):
+            lo, hi = min(lo, np.min(v)), max(hi, np.max(v))
+        H = h
+    return int(lo), int(hi)
+
+
+def _adversarial_pairs(rng, M, N):
+    """Pairs of 4-bit codes that push the box's scores to its extremes: all
+    matches, all mismatches, all N, one long gap each way, a random pair;
+    at full and at partial lengths."""
+    A, C, Nc = 1, 2, 15
+    rows = []
+    for full in (True, False):
+        ql = M if full else rng.randint(1, M)
+        tl = N if full else rng.randint(1, N)
+        kinds = [([A] * ql, [A] * tl), ([A] * ql, [C] * tl),
+                 ([Nc] * ql, [Nc] * tl), ([A] * ql, [A] * max(1, tl // 5)),
+                 ([A] * max(1, ql // 5), [A] * tl),
+                 ([rng.choice((1, 2, 4, 8)) for _ in range(ql)],
+                  [rng.choice((1, 2, 4, 8)) for _ in range(tl)])]
+        rows += kinds
+    q = np.zeros((len(rows), M), dtype=np.int64)
+    t = np.zeros((len(rows), N), dtype=np.int64)
+    for k, (a, b) in enumerate(rows):
+        q[k, :len(a)] = a
+        t[k, :len(b)] = b
+    qlen = np.array([len(a) for a, _ in rows], dtype=np.int64)
+    tlen = np.array([len(b) for _, b in rows], dtype=np.int64)
+    return q, t, qlen, tlen
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_rowscan16_envelope_holds(seed):
+    """Wherever K2m's route picks its 16-bit body, every value of the box
+    fits int16: seeded schemes (large scores, so that the envelope's edge
+    lies below 1024 nt; gap classes that differ, zero gap opens,
+    n_mismatch) at the largest square plane the route takes and two
+    rectangles of it, with adversarial pairs (_box_extremes)."""
+    rng = random.Random(seed)
+    gos = [rng.choice((0, rng.randint(1, 300))) for _ in range(6)]
+    ges = [rng.randint(4, 30) for _ in range(6)]
+    key = ((rng.randint(20, 63), rng.randint(-64, -24)) + tuple(gos)
+           + tuple(ges) + (bool(seed % 2),))
+    W = 8
+    while W < 1024 and nw_rowscan.rowscan16(key, W + 8, W + 8):
+        W += 8
+    assert nw_rowscan.rowscan16(key, W, W)
+    for M, N in ((W, W), (W, W // 2), (W // 3, W)):
+        assert nw_rowscan.rowscan16(key, M, N)
+        q, t, qlen, tlen = _adversarial_pairs(rng, M, N)
+        lo, hi = _box_extremes(key, q, t, qlen, tlen)
+        assert -32768 <= lo and hi <= 32767, (key, M, N, lo, hi)
+        if M == N:
+            # the plane is at the route's edge, and its scores use a
+            # good part of the range
+            assert W < 1024 and not nw_rowscan.rowscan16(key, W + 8, W + 8)
+            assert min(lo, -hi) < -8192, (key, W, lo, hi)

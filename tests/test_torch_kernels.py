@@ -410,28 +410,12 @@ def test_rowscan_mr_and_stats_kernels_match_plain(cuda_device, case, M, N,
                                                   B):
     """K2m and K5 against their plain versions; 400 x 400 x 4096 is the
     allpairs cell's batch, and 400 nt identical pairs restart their runs
-    and match counts after RLCAP."""
+    and match counts after RLCAP.  The overflow scheme takes K2m's 32-bit
+    body, the others its 16-bit body."""
     key = CASES[case][0]()
     qs, ts = _case_pairs(case, B, M, N)
-    qmT, amT = nw_batch.encode_rowT(qs, B, M, key[1], bool(key[14]))
-    rqT = np.ascontiguousarray(nw_batch.encode_padded(qs, B, M).T)
-    t4T = np.ascontiguousarray(nw_batch.encode_padded(ts, B, N).T)
-    qlen = np.array([len(q) for q in qs], dtype=np.int32)
-    tlen = np.array([len(t) for t in ts], dtype=np.int32)
-    host = [torch.from_numpy(a) for a in (qmT, amT, rqT, qlen, t4T, tlen)]
-    fwd = nw_rowscan.build_forward(key, with_matches=True)
-    cuda_lib.reset_launches()
-    got = fwd(*(a.to(cuda_device) for a in host))
-    torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["nw_rowscan_mr"] == 1
-    assert cuda_lib.LAUNCHES["nw_rowscan"] == 0
-    ref = nw_rowscan.forward_plain(
-        key, nw_rowscan._scheme(key).score_min(),
-        nw_rowscan.overflow_possible(key, M, N),
-        *(a.to(cuda_device) for a in (host[0], host[1], host[3], host[4],
-                                      host[5], host[2])))
-    for r, g in zip(ref, got):
-        assert _same(r, g)
+    host = _mr_wire(key, qs, ts, M, N)
+    got, ref = _mr_run(cuda_device, key, host, M, N)
     if case == "overflow":
         assert bool(ref[1].any())
     if case == "identity":
@@ -443,6 +427,138 @@ def test_rowscan_mr_and_stats_kernels_match_plain(cuda_device, case, M, N,
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["nw_stats"] == 1
     assert _same(st_ref, st_got)
+
+
+def _mr_wire(key, qs, ts, M, N, lens=None):
+    """K2m's inputs (qmT, amT, rqT, qlen, t4T, tlen) on the CPU; lens, if
+    given, replaces the pairs' lengths."""
+    B = len(qs)
+    qmT, amT = nw_batch.encode_rowT(qs, B, M, key[1], bool(key[14]))
+    rqT = np.ascontiguousarray(nw_batch.encode_padded(qs, B, M).T)
+    t4T = np.ascontiguousarray(nw_batch.encode_padded(ts, B, N).T)
+    qlen = np.array([len(q) for q in qs], dtype=np.int32)
+    tlen = np.array([len(t) for t in ts], dtype=np.int32)
+    if lens is not None:
+        qlen, tlen = (np.array(v, dtype=np.int32) for v in lens)
+    return [torch.from_numpy(a) for a in (qmT, amT, rqT, qlen, t4T, tlen)]
+
+
+def _mr_run(cuda_device, key, host, M, N):
+    """K2m on the card, as routed, against its plain version on the same
+    card: the route's body launched once and the other body never, every
+    output equal bit for bit.  Returns (kernel outputs, plain outputs)."""
+    body = ("nw_rowscan_mr16" if nw_rowscan.rowscan16(key, M, N)
+            else "nw_rowscan_mr")
+    other = ({"nw_rowscan_mr", "nw_rowscan_mr16"} - {body}).pop()
+    fwd = nw_rowscan.build_forward(key, with_matches=True)
+    cuda_lib.reset_launches()
+    got = fwd(*(a.to(cuda_device) for a in host))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[body] == 1
+    assert cuda_lib.LAUNCHES[other] == 0
+    assert cuda_lib.LAUNCHES["nw_rowscan"] == 0
+    ref = nw_rowscan.forward_plain(
+        key, nw_rowscan._scheme(key).score_min(),
+        nw_rowscan.overflow_possible(key, M, N),
+        *(a.to(cuda_device) for a in (host[0], host[1], host[3], host[4],
+                                      host[5], host[2])))
+    for r, g in zip(ref, got):
+        assert _same(r, g)
+    return got, ref
+
+
+def _edge_scheme():
+    """A scheme whose 16-bit envelope ends near 600 nt (match 40, mismatch
+    -50), and the largest square plane, a multiple of 8, inside it."""
+    key = (40, -50) + _default_key()[2:]
+    W = 8
+    while nw_rowscan.rowscan16(key, W + 8, W + 8):
+        W += 8
+    return key, W
+
+
+def _mr16_case(case, B):
+    """(key, pairs, M, N, lens) of a 16-bit body edge case."""
+    rng = random.Random(case + str(B))
+    if case == "cell":
+        # the allpairs cell's pairs: random 400 nt
+        qs = [_random_seq(rng, 400) for _ in range(B)]
+        ts = [_random_seq(rng, 400) for _ in range(B)]
+        return _default_key(), qs, ts, 400, 400, None
+    if case == "lengths":
+        # the two pairs of a couple differ in qlen and tlen; lengths 0, 1,
+        # the plane's and past it
+        qs = [_random_seq(rng, rng.randint(1, 64)) for _ in range(B)]
+        ts = [_random_seq(rng, rng.randint(1, 64)) for _ in range(B)]
+        pick = [0, 1, 2, 63, 64, 70]
+        lens = ([pick[k % 6] if k % 3 else len(qs[k]) for k in range(B)],
+                [pick[(k // 2) % 6] if k % 4 else len(ts[k])
+                 for k in range(B)])
+        return _default_key(), qs, ts, 64, 64, lens
+    if case == "identity":
+        qs, ts = _identity_pairs(rng, B, 400, 400)
+        return _default_key(), qs, ts, 400, 400, None
+    if case == "ambiguous":
+        # ambiguous codes in both sequences, N under n_mismatch
+        qs, ts = _pairs(rng, B, 200, 150, "ACGTNRYSWKMBDHVN")
+        return _default_key(n_mismatch=True), qs, ts, 200, 150, None
+    key, W = _edge_scheme()
+    if case == "edge_out":
+        W += 8
+    # identical pairs (the highest scores), all-mismatch pairs and pairs
+    # with one long gap (the lowest), random pairs
+    qs, ts = [], []
+    for k in range(B):
+        q = _random_seq(rng, W)
+        kind = k % 4
+        if kind == 0:
+            t = q
+        elif kind == 1:
+            t = bytes(b"ACGT"[(b"ACGT".index(c) + 1) % 4] for c in q)
+        elif kind == 2:
+            t = q[:W // 5]
+        else:
+            t = _random_seq(rng, W)
+        qs.append(q)
+        ts.append(t)
+    return key, qs, ts, W, W, None
+
+
+@pytest.mark.parametrize("case,B", [("cell", 1), ("cell", 17), ("cell", 33),
+                                    ("cell", 4095), ("lengths", 40),
+                                    ("lengths", 41), ("identity", 63),
+                                    ("ambiguous", 301), ("edge_in", 64),
+                                    ("edge_out", 64)])
+def test_rowscan_mr16_edges_match_plain(cuda_device, case, B):
+    """K2m's 16-bit body (two pairs a warp) at its edges against the plain
+    version: batches that leave a lone pair in the last couple (1, 17, 33,
+    4095), couples whose pairs differ in length (0, 1, the plane's, past
+    it), 400 nt identical pairs whose runs restart after RLCAP in both
+    halves, ambiguous codes and N under n_mismatch, and a scheme on each
+    side of its envelope's edge (edge_out takes the 32-bit body)."""
+    key, qs, ts, M, N, lens = _mr16_case(case, B)
+    assert nw_rowscan.rowscan16(key, M, N) == (case != "edge_out")
+    got, _ = _mr_run(cuda_device, key, _mr_wire(key, qs, ts, M, N, lens), M,
+                     N)
+    if case == "identity":
+        assert _run_wraps(got[2], got[3]) >= 1
+        assert int((got[3] == nw_rowscan.RLCAP).sum()) > 0
+        # in pairs of both halves of the couples
+        wraps = (got[3] == nw_rowscan.RLCAP).any(dim=0).any(dim=0)
+        assert bool(wraps[0::2].any()) and bool(wraps[1::2].any())
+
+
+def test_rowscan_mr_match_220_takes_the_32_bit_body(cuda_device):
+    """--match 220: some pairs overflow the 16-bit forward, so K2m runs its
+    32-bit body with overflow tracking, equal to the plain version."""
+    key = _default_key(match=220)
+    assert not nw_rowscan.rowscan16(key, 200, 200)
+    qs, ts = _identity_pairs(random.Random(220), 64, 200, 200)
+    qs += [_random_seq(random.Random(k), 180) for k in range(64)]
+    ts += [_random_seq(random.Random(k + 64), 190) for k in range(64)]
+    _, ref = _mr_run(cuda_device, key, _mr_wire(key, qs, ts, 200, 200),
+                     200, 200)
+    assert bool(ref[1].any()) and not bool(ref[1].all())
 
 
 # K5-only cases: K3's four, identical 400 nt pairs (RLCAP wraps, mr at

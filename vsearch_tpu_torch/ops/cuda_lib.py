@@ -4,8 +4,8 @@ Each ``csrc/<source>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/vsearch_tpu_torch/lib<source>.so`` (a
 git-ignored directory) at first use, then loaded with ctypes.  A source
 may hold more than one kernel (``SOURCES``: K1 and K4 share one body, K2
-and K2m are two instantiations of one template, K3 and K7 are the two
-backtracks).
+and K2m's 32-bit body are two instantiations of one template beside K2m's
+16-bit body, K3 and K7 are the two backtracks).
 Nothing here runs when a module is imported: the CPU tests import every
 module on a machine without nvcc or a card.
 
@@ -33,6 +33,7 @@ BUILD_DIR = native.BUILD_DIR
 # kernel -> the csrc/ source that holds it
 SOURCES = {"score_dense": "score_dense", "score_ranked": "score_dense",
            "nw_rowscan": "nw_rowscan", "nw_rowscan_mr": "nw_rowscan",
+           "nw_rowscan_mr16": "nw_rowscan",
            "nw_backtrack": "nw_backtrack", "nw_stats": "nw_stats",
            "nw_wavefront": "nw_wavefront",
            "nw_backtrack_flat": "nw_backtrack"}

@@ -19,10 +19,12 @@ overflow for this scheme and geometry.
 CUDA tensors launch csrc/nw_rowscan.cu (nw_rowscan_kernel<false> for K2,
 <true> for K2m): one warp a pair, its lanes on the rows of a 32-row band,
 up to 32 pairs a block writing the planes through a shared stage, and a
-(B, N) int4 scratch for each band's last row.  CPU tensors take the plain
-version below, a Python loop over rows vectorised over (N, B).  Unlike the
-TPU kernel, both take any M, N and B, and the amT wire is int16 so any
-mismatch score fits.
+(B, N) int4 scratch for each band's last row.  K2m takes its 16-bit body
+(nw_rowscan_mr16_kernel: two pairs a warp in 16-bit halves) wherever
+rowscan16 holds, a predicate of the scheme and the shape alone.  CPU
+tensors take the plain version below, a Python loop over rows vectorised
+over (N, B), for either body.  Unlike the TPU kernel, both take any M, N
+and B, and the amT wire is int16 so any mismatch score fits.
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ def _lib():
         lib.nw_rowscan_mr_launch.argtypes = [p, p, p, p, p, p, i, i, i, p,
                                              p, p, p, p, p, p]
         lib.nw_rowscan_mr_launch.restype = i
+        lib.nw_rowscan_mr16_launch.argtypes = [p, p, p, p, p, p, i, i, i,
+                                               p, p, p, p, p, p, p]
+        lib.nw_rowscan_mr16_launch.restype = i
         _argtypes_set = True
     return lib
 
@@ -61,27 +66,69 @@ def _scheme(scheme_key: tuple) -> ScoreScheme:
     return ScoreScheme(*scheme_key[:14], bool(scheme_key[14]))
 
 
+def _path_bounds(scheme_key: tuple, M: int, N: int):
+    """(hlo, hhi): every path score to a cell of the M x N box lies in
+    [hlo, hhi], and so does every boundary value; None where a gap scores
+    a reward.  hhi = min(M, N) * vmax: at most min(M, N) diagonal cells,
+    gaps cost >= 0 and the boundaries are <= 0.  hlo = min(M, N) * vmin -
+    2 * max(go) - max(M, N) * max(ge), the score of the specific
+    diagonal-then-single-gap path."""
+    (match, mismatch, go_q_l, go_t_l, go_q_i, go_t_i, go_q_r, go_t_r,
+     ge_q_l, ge_t_l, ge_q_i, ge_t_i, ge_q_r, ge_t_r, _) = scheme_key
+    gos = (go_q_l, go_t_l, go_q_i, go_t_i, go_q_r, go_t_r)
+    ges = (ge_q_l, ge_t_l, ge_q_i, ge_t_i, ge_q_r, ge_t_r)
+    if min(gos) < 0 or min(ges) < 0:
+        return None
+    hlo = min(M, N) * min(match, mismatch, 0) - 2 * max(gos) \
+        - max(M, N) * max(ges)
+    return hlo, min(M, N) * max(match, mismatch, 0)
+
+
 def overflow_possible(scheme_key: tuple, M: int, N: int) -> bool:
     """Static envelope: can any cell's h reach the reference's 16-bit
     overflow thresholds for this scheme/geometry?
 
-    h(i,j) is the optimal prefix-alignment score, bounded below by the
-    score of the specific diagonal-then-single-gap path and above by
-    all-diagonal matches.  When both bounds stay inside
-    (score_min, SHRT_MAX), neither engine can flag overflow and the
-    tracking is dropped (reference: align_simd.cpp compute_score_min
-    :1432-1444)."""
-    (match, mismatch, go_q_l, go_t_l, go_q_i, go_t_i, go_q_r, go_t_r,
-     ge_q_l, ge_t_l, ge_q_i, ge_t_i, ge_q_r, ge_t_r, n_mismatch) = scheme_key
-    gos = (go_q_l, go_t_l, go_q_i, go_t_i, go_q_r, go_t_r)
-    ges = (ge_q_l, ge_t_l, ge_q_i, ge_t_i, ge_q_r, ge_t_r)
-    if min(gos) < 0 or min(ges) < 0:
+    h(i,j) is the optimal prefix-alignment score, inside _path_bounds.
+    When both bounds stay inside (score_min, SHRT_MAX), neither engine can
+    flag overflow and the tracking is dropped (reference: align_simd.cpp
+    compute_score_min :1432-1444)."""
+    bounds = _path_bounds(scheme_key, M, N)
+    if bounds is None:
         return True  # gap rewards: bail to exact tracking
-    mm_floor = min(mismatch, match, 0)
-    hmin_b = min(M, N) * mm_floor - 2 * max(gos) - max(M, N) * max(ges)
-    hmax_b = min(M, N) * max(match, 0)
-    scheme = _scheme(scheme_key)
-    return not (hmin_b > scheme.score_min() + 8 and hmax_b < SHRT_MAX - 8)
+    hmin_b, hmax_b = bounds
+    score_min = _scheme(scheme_key).score_min()
+    return not (hmin_b > score_min + 8 and hmax_b < SHRT_MAX - 8)
+
+
+def fits_int16(scheme_key: tuple, M: int, N: int) -> bool:
+    """Static envelope of the 16-bit body: does every value the forward
+    computes in the M x N box -- H, E, F, htemp, htemp2 and the
+    intermediates E - R, F - R, h - QR and htemp2 - QR, boundaries
+    included, past qlen and tlen too -- lie in [-32768, 32767]?
+
+    h, htemp2, htemp, E and F are path scores or boundaries, so at most
+    hhi of _path_bounds; h >= hlo, htemp and htemp2 >= hlo + vmin, F >=
+    hlo - max(QR), E >= hlo + vmin - max(QR), and each intermediate
+    subtracts at most one more max(ge)."""
+    bounds = _path_bounds(scheme_key, M, N)
+    if bounds is None:
+        return False
+    hlo, hhi = bounds
+    match, mismatch = scheme_key[:2]
+    gos, ges = scheme_key[2:8], scheme_key[8:14]
+    max_qr = max(go + ge for go, ge in zip(gos, ges))
+    vmin = min(match, mismatch, 0)
+    return hlo + vmin - max_qr - max(ges) >= -32768 and hhi <= 32767
+
+
+def rowscan16(scheme_key: tuple, M: int, N: int) -> bool:
+    """K2m's route to its 16-bit body: no overflow tracking, the 16-bit
+    envelope, and substitution scores in [-64, 63] (the body's V table
+    holds V + 64 in seven bits).  The scheme and the shape alone decide."""
+    match, mismatch = scheme_key[0], scheme_key[1]
+    return (not overflow_possible(scheme_key, M, N)
+            and fits_int16(scheme_key, M, N)
+            and -64 <= min(match, mismatch) and max(match, mismatch) <= 63)
 
 
 def build_forward(scheme_key: tuple, with_matches: bool = False):
@@ -111,7 +158,11 @@ def build_forward(scheme_key: tuple, with_matches: bool = False):
     return forward
 
 
-def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None):
+def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None,
+             _body=None):
+    """The forward on either device.  _body names K2m's body,
+    "nw_rowscan_mr" or "nw_rowscan_mr16", instead of the route; it is for
+    comparing the two on the same inputs."""
     M, B = qmT.shape
     N = t4T.shape[0]
     checks = [("qmT", qmT, torch.int8, (M, B)),
@@ -137,6 +188,7 @@ def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None):
     score_min = _scheme(key).score_min()
     track = overflow_possible(key, M, N)
     if qmT.device.type == "cpu":
+        # one plain version serves both of K2m's bodies
         cuda_lib.PLAIN_CALLS[kernel] += 1
         return forward_plain(key, score_min, track, qmT, amT, qlen, t4T,
                              tlen, rqT, out)
@@ -148,9 +200,9 @@ def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None):
     params = (ctypes.c_int * 17)(*key, int(track), score_min)
     stream = cuda_lib.stream_ptr(dev)
     # each band's last row (H, F, run length | match count | target code),
-    # 16 bytes a column of a pair; the kernel needs no initial value
-    rows = torch.empty((B, N, 4), dtype=torch.int32, device=dev)
+    # 16 bytes a column of a pair; the kernels need no initial value
     if rqT is None:
+        rows = torch.empty((B, N, 4), dtype=torch.int32, device=dev)
         dirs = torch.empty((M, N, B), dtype=torch.uint16, device=dev)
         rc = _lib().nw_rowscan_launch(
             qmT.data_ptr(), amT.data_ptr(), qlen.data_ptr(),
@@ -165,7 +217,24 @@ def _forward(key: tuple, qmT, amT, qlen, t4T, tlen, rqT=None, out=None):
         out = (torch.empty((M, N, B), dtype=torch.uint16, device=dev),
                torch.empty((M, N, B), dtype=torch.uint8, device=dev))
     dirs, mr = out
-    rc = _lib().nw_rowscan_mr_launch(
+    if _body is None:
+        _body = "nw_rowscan_mr16" if rowscan16(key, M, N) else kernel
+    if _body == "nw_rowscan_mr16":
+        if not rowscan16(key, M, N):
+            raise ValueError("the 16-bit body cannot take this scheme at "
+                             "%d x %d" % (M, N))
+        kernel = _body
+        # each band's last row of a couple (H, F, run length | match
+        # count, two pairs in 16-bit halves), 32 columns of padding
+        rows = torch.empty(((B + 1) // 2, N + 32, 4), dtype=torch.int32,
+                           device=dev)
+        launch = _lib().nw_rowscan_mr16_launch
+    elif _body == "nw_rowscan_mr":
+        rows = torch.empty((B, N, 4), dtype=torch.int32, device=dev)
+        launch = _lib().nw_rowscan_mr_launch
+    else:
+        raise ValueError("no K2m body %r" % (_body,))
+    rc = launch(
         qmT.data_ptr(), amT.data_ptr(), rqT.data_ptr(), qlen.data_ptr(),
         t4T.data_ptr(), tlen.data_ptr(), M, N, B, params,
         score.data_ptr(), over.data_ptr(), dirs.data_ptr(), mr.data_ptr(),
