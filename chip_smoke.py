@@ -11,7 +11,8 @@ de novo chimera detection (K4, and K2, K3 where its alignment waves
 pass the host crossover; its parity runs also drive uchime_ref's K1 and
 K6, K7 under --mismatch -200), and the session API's
 SearchSession.search_batch (K1, K2, K3; its parity runs also drive
-ChimeraSession's K1); and the multi-process path, two
+ChimeraSession's K1); the C-ABI embedding shim, a C program's
+vstpu_search_single calls (K1, K2, K3); and the multi-process path, two
 torch.distributed ranks sharing the card, each running the kernels of
 its shard (K1, K4, K2 + K3, K6 + K7).
 Phases (any failure ends the run with a non-zero exit and no result
@@ -25,7 +26,9 @@ line):
    counts and integer DP), and time kernel, plain version, one PyTorch
    library call computing the same function where there is one, and the
    least time the card could take (bound_ms): K1, K2 and K3 at the search
-   shapes and K2 and K3 at a walk round's (the first 128 of those pairs,
+   shapes, K1 at a single query's (the chunk of 128 that each
+   vstpu_search_single call scores, the bench's first query) and K2 and
+   K3 at a walk round's (the first 128 of those pairs,
    BatchAligner.PAIR_BUCKETS[0]; K3 also timed right after a fresh K2
    launch wrote its plane, ms_after_k2, as the pipeline runs it, beside
    its entries a lane, max_steps and mean_steps), K4 at the full
@@ -82,7 +85,16 @@ line):
    seconds and the device steps' launches; then the multi-block merge:
    usearch_global of 64 queries against 270 000 sequences of 64 nt,
    three index blocks of DeviceKmerIndex.BLOCK_POS positions, on cuda
-   (K1 once a block) and on cpu, uc and blast6 byte-equal;
+   (K1 once a block) and on cpu, uc and blast6 byte-equal; then
+   --match 1 --mismatch 100 (tests/overflow_workload.py, 400-520 nt, a
+   mismatch reward that takes alignments past SHRT_MAX): usearch_global
+   with every walk round on the device aligner and allpairs_global, on
+   cuda and on cpu, uc, blast6 and userout byte-equal, each cuda run
+   flagging overflowing pairs (K1, K2, K3; K2m's 32-bit body and K5); the
+   inputs of the first K2 call and the first K2m call of the cuda runs in
+   which a pair overflowed are kept, and K2 and K2m on them (overflow
+   tracking on) and K3 on K2's plane are held against their plain
+   versions;
 4. the full-width runs.  usearch_global: the bench dataset (100 000 DB
    sequences x 600 nt, 2000 queries, seed 1234, --id 0.9 --maxaccepts 1
    --maxrejects 32, wordlength 8) through the CLI, one warm-up then one
@@ -114,7 +126,20 @@ line):
    (FULL_ARGS), search_batch on its 2000 queries as one batch, once to
    warm up, once timed with the launch counts read around it, four times
    more timed, once under torch.profiler; a result row a query, each equal in target and CIGAR
-   to the usearch_global run's uc line.  Before each full-width run the
+   to the usearch_global run's uc line.  The C-ABI shim ("capi"):
+   vsearch_tpu_torch/capi.py builds csrc/capi.c and the demo embedder
+   csrc/capi_demo.c; the demo, a subprocess on the card, sends the bench
+   dataset's first CAPI_QUERIES queries, one vstpu_search_single call
+   each, its rows equal to SearchSession.search's in this process; the
+   shim loaded into this process with ctypes sends the same queries, each
+   call timed, with the launch counts read around that run, which is the
+   path's in the kernels line: its rows equal the demo's, its queries/s
+   and the median and p99 of a call are printed with the demo's wall; on
+   write_parity_workload the demo on cuda and on cpu and the two-thread
+   embedder tests/capi_threads.c print the same rows; the shim in this
+   process drives vstpu_* on the same workload,
+   from this thread and from a new one, each launching K1, K2 and K3 and
+   no plain version.  Before each full-width run the
    aligner's process-wide routing estimates are set back to where a
    fresh CLI process starts, and the host/device crossover (DP cells) and
    the walk rounds that reached the device forward are printed;
@@ -246,6 +271,13 @@ NW_MR_CELL_OPS = 25
 K2M_BODIES = ("nw_rowscan_mr16", "nw_rowscan_mr")
 # sequences of the allpairs cell run also on cpu, cuda against cpu
 AP_CPU_SEQS = 64
+
+# the capi phase: the demo's subprocess time limit, and the bench
+# dataset's queries it sends, each one vstpu_search_single call: the
+# first 512 of the 2000 (with all 2000 the phase took over a minute on an
+# H100 80GB HBM3 at 700 W: 12.2 s of calls, and 18.6 s in process)
+CAPI_TIMEOUT = 300
+CAPI_QUERIES = 512
 
 # BatchAligner's routing estimates (device call overhead, host cell rate)
 # as a fresh process starts with them; main() reads them before any run
@@ -772,6 +804,8 @@ def phase_kernels(gpu, db_path, q_path):
                 "max_abs_err": err1,
                 "launches": cuda_lib.LAUNCHES["score_dense"], "card": gpu})
     emit(out[-1])
+    out.append(single_query_record(gpu, klists[0], V, bits, n_real))
+    emit(out[-1])
 
     # K2 + K3: each query aligned with its top-1 candidate (the prefetch)
     args, p = search_prefetch_args(ctx, qseqs, Kbits)
@@ -792,6 +826,41 @@ def phase_kernels(gpu, db_path, q_path):
         gpu, key200, tuple(a[:walk_b].contiguous() for a in codes), "_walk",
         k2_ms))
     return {o["kernel"]: o for o in out}
+
+
+def single_query_record(gpu, kmers, V: int, bits, n_real: int) -> dict:
+    """K1 at the shape of one vstpu_search_single call (one query packed
+    into a chunk of 128 rows, as DeviceKmerIndex._chunk_topk packs a
+    chunk of at most 128) against its plain version, timed, with its
+    bound: the "single" shape of score_dense."""
+    import numpy as np
+    import torch
+    from vsearch_tpu_torch.ops import cuda_lib, score_dense
+    Kbits = torch.from_numpy(score_dense.pack_query_bits(
+        [kmers], 128, V).view(np.int32)).to(bits.device)
+    words = bits.shape[1]
+    cuda_lib.reset_launches()
+    got = score_dense.counts_or_keys(Kbits, bits, n_real, True)
+    ref = score_dense.counts_or_keys_plain(Kbits, bits, n_real, True)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    require(err == 0, "K1 differs from its plain version at one query")
+    launches = cuda_lib.LAUNCHES["score_dense"]
+    ms = timed(lambda: score_dense.counts_or_keys(Kbits, bits, n_real, True),
+               20)
+    plain_ms = timed(lambda: score_dense.counts_or_keys_plain(
+        Kbits, bits, n_real, True), 1)
+    # data-dependent: the index rows of the query's k-mers, not the whole
+    # index
+    nbytes = (Kbits.numel() + kmers.size * words + got.numel()) * 4
+    bound_ms, bound_by = bound(nbytes, 2 * kmers.size * words * 32,
+                               INT8_TC_OPS)
+    return {"kernel": "score_dense_single",
+            "shape": {"qp": Kbits.shape[0], "queries": 1, "V": V,
+                      "words": words, "ids": int(kmers.size)},
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "launches": launches, "card": gpu}
 
 
 def nw_records(gpu, key, scheme, args, tag: str):
@@ -1821,6 +1890,161 @@ def phase_allpairs_parity(gpu):
     return match_220
 
 
+class overflowing_forwards:
+    """Keeps the inputs of the first K2 call and the first K2m call
+    (nw_rowscan._forward, without and with rqT) in which a pair
+    overflowed, as copies: self.kept maps nw_rowscan and nw_rowscan_mr to
+    (key, qmT, amT, qlen, t4T, tlen, rqT)."""
+
+    def __enter__(self):
+        from vsearch_tpu_torch.ops import nw_rowscan
+        self.kept = {}
+        self._orig = forward = nw_rowscan._forward
+
+        def keep(key, qmT, amT, qlen, t4T, tlen, rqT=None, out=None,
+                 _body=None):
+            res = forward(key, qmT, amT, qlen, t4T, tlen, rqT, out, _body)
+            name = "nw_rowscan" if rqT is None else "nw_rowscan_mr"
+            if name not in self.kept and bool(res[1].any()):
+                self.kept[name] = tuple(
+                    x if x is None or isinstance(x, tuple) else x.clone()
+                    for x in (key, qmT, amT, qlen, t4T, tlen, rqT))
+            return res
+
+        nw_rowscan._forward = keep
+        return self
+
+    def __exit__(self, *exc):
+        from vsearch_tpu_torch.ops import nw_rowscan
+        nw_rowscan._forward = self._orig
+
+
+def overflow_records(gpu, kept):
+    """K2 and K2m on the inputs overflowing_forwards kept, with overflow
+    tracking on (the route's own choice at that scheme and shape), and K3
+    on K2's plane, each against its plain version: the "overflow" shapes
+    of nw_rowscan, nw_rowscan_mr and nw_backtrack."""
+    import torch
+    from vsearch_tpu_torch.ops import nw_batch, nw_rowscan
+    out = []
+    for name in ("nw_rowscan", "nw_rowscan_mr"):
+        require(name in kept, "no %s call of phase 3's --mismatch 100 runs "
+                "flagged an overflowing pair" % name)
+        key, qmT, amT, qlen, t4T, tlen, rqT = kept[name]
+        M, B = qmT.shape
+        N = t4T.shape[0]
+        require(nw_rowscan.overflow_possible(key, M, N)
+                and not nw_rowscan.rowscan16(key, M, N),
+                "%s does not track overflow at %d x %d" % (name, M, N))
+        got = nw_rowscan._forward(key, qmT, amT, qlen, t4T, tlen, rqT)
+        want = nw_rowscan.forward_plain(
+            key, nw_rowscan._scheme(key).score_min(), True, qmT, amT, qlen,
+            t4T, tlen, rqT)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        require(err == 0, "%s differs from its plain version with overflow "
+                "tracking" % name)
+        out.append({"kernel": name + "_overflow",
+                    "shape": {"B": B, "M": M, "N": N,
+                              "overflowing": int(got[1].sum())},
+                    "max_abs_err": err, "card": gpu})
+        emit(out[-1])
+        if name == "nw_rowscan":
+            ops_k = nw_batch.backtrack_rle(got[2], qlen, tlen)
+            ops_p = nw_batch.backtrack_rle_plain(got[2], qlen, tlen)
+            torch.cuda.synchronize()
+            err = max_abs_err(ops_k, ops_p)
+            require(err == 0, "K3 differs from its plain version on an "
+                    "overflowing K2 plane")
+            out.append({"kernel": "nw_backtrack_overflow",
+                        "shape": {"B": B, "M": M, "N": N},
+                        "max_abs_err": err, "card": gpu})
+            emit(out[-1])
+    return out
+
+
+def phase_overflow_parity(gpu):
+    """--match 1 --mismatch 100 on tests/overflow_workload.py (400-520 nt,
+    near-all-mismatch pairs among them), a scheme whose alignments pass
+    SHRT_MAX: usearch_global with every walk round on the device aligner
+    and allpairs_global, each on cuda and on cpu, uc, blast6 and userout
+    byte-equal.  Each cuda run must flag overflowing pairs (the aligner's
+    SHRT_MAX sentinels; allpairs also K2m's overflow flags) and launch no
+    plain version: search K1, K2 and K3, allpairs K2m's 32-bit body (a
+    mismatch of 100 is outside the 16-bit body's [-64, 63]) and K5.
+    The inputs of a K2 call and a K2m call of the cuda runs in which a
+    pair overflowed are then held against the plain versions
+    (overflow_records).  Returns the launches of the two cuda runs and
+    those records."""
+    from tests.overflow_workload import (ARGS, count_overflow,
+                                         write_overflow_workload)
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.ops import cuda_lib, nw_batch
+    d = WORK / "overflow"
+    d.mkdir(parents=True, exist_ok=True)
+    db, q, ap = write_overflow_workload(d)
+    runs = {
+        "usearch_global_mismatch_100": (
+            ["--usearch_global", str(q), "--db", str(db), "--id", "0.01",
+             "--maxaccepts", "2", "--maxrejects", "4", "--output_no_hits"],
+            SEARCH_KERNELS),
+        "allpairs_global_mismatch_100": (
+            ["--allpairs_global", str(ap), "--id", "0.01",
+             "--minseqlength", "1"], ("nw_rowscan_mr", "nw_stats"))}
+    aligner = nw_batch.BatchAligner
+    crossover = aligner._native_cells_crossover
+    out = {}
+    kept = {}
+    try:
+        aligner._native_cells_crossover = lambda self: 0
+        for name, (args, required) in runs.items():
+            outs = {}
+            for run in ("cuda", "cpu"):
+                tag = str(d / ("%s.%s" % (name, run)))
+                files = [tag + ".uc", tag + ".b6", tag + ".user"]
+                cuda_lib.reset_launches()
+                t0 = time.perf_counter()
+                seen, undo = count_overflow()
+                try:
+                    with overflowing_forwards() as fwd:
+                        rc = cli.main(args + ARGS + [
+                            "--uc", files[0], "--blast6out", files[1],
+                            "--userout", files[2], "--userfields",
+                            "query+target+id+raw+mism+gaps+qlo+qhi+tlo+thi+"
+                            "caln", "--threads", "1", "--quiet"], device=run)
+                finally:
+                    undo()
+                require(rc == 0, "%s failed (%s)" % (name, run))
+                outs[run] = [pathlib.Path(f).read_bytes() for f in files]
+                if run == "cpu":
+                    continue
+                launches = dict(cuda_lib.LAUNCHES)
+                require(all(launches[k] > 0 for k in required)
+                        and launches["nw_rowscan_mr16"] == 0,
+                        "a kernel of the %s path did not launch" % name)
+                require(not any(cuda_lib.PLAIN_CALLS.values()),
+                        "a plain version ran on the card (%s)" % name)
+                require_wire(launches, False, name)
+                require(seen["aligner_sentinels"] > 0
+                        and (seen["allpairs_overflow"] > 0
+                             or name.startswith("usearch")),
+                        "no pair overflowed (%s)" % name)
+                out[name] = launches
+                for k, v in fwd.kept.items():
+                    kept.setdefault(k, v)
+                emit({"phase": "overflow_parity_launches", "options": name,
+                      "seconds": time.perf_counter() - t0,
+                      "launches": launches, **seen, "card": gpu})
+            require(outs["cuda"] == outs["cpu"] and all(outs["cuda"]),
+                    "cuda and cpu outputs differ (%s)" % name)
+            emit({"phase": "overflow_parity", "options": name,
+                  "equal": True, "bytes": [len(b) for b in outs["cuda"]],
+                  "card": gpu})
+    finally:
+        aligner._native_cells_crossover = crossover
+    return out, overflow_records(gpu, kept)
+
+
 def phase_chimera_parity(gpu):
     """The five chimera verbs on the seeded chimera workload (800
     sequences; chimeras_denovo also with tests/data/chimeras_long.fasta
@@ -2416,6 +2640,164 @@ def phase_api_full(gpu, db_path, q_path):
     return launches
 
 
+def phase_capi(gpu, db_path, q_path):
+    """The C-ABI embedding shim (vsearch_tpu_torch/csrc/capi.c, built by
+    vsearch_tpu_torch/capi.py with its demo, csrc/capi_demo.c, and the
+    two-thread embedder tests/capi_threads.c), over the bench dataset's
+    first CAPI_QUERIES queries (--id 0.9, maxaccepts 1, maxrejects 32 and
+    wordlength 8), each one vstpu_search_single call: the demo, a
+    subprocess on the card, must print the rows of SearchSession.search
+    in this process on the same queries with the same parameters.  Then
+    the shim is loaded into this process (it finds the interpreter
+    running) and sends the same queries, each call timed, with the launch
+    counts read around that run: it must launch K1, K2 and K3 and no plain
+    version and give the demo's rows.  On write_parity_workload the demo
+    on cuda and with VSEARCH_TPU_TORCH_DEVICE=cpu, and the two-thread
+    embedder on cuda, must print the same rows; the shim in this process
+    drives vstpu_* on the same workload from this thread and then from a
+    new one: each run must launch K1, K2 and K3 and no plain version and
+    print the demo's rows; a second vstpu_session_begin inside the
+    session must return -1.  Returns the launches of the timed run."""
+    import threading
+    from tests import capi_sessions
+    from tests.api_sessions import read_fasta
+    from vsearch_tpu_torch import api, capi, device
+    from vsearch_tpu_torch.ops import cuda_lib
+    from vsearch_tpu_torch.params import Parameters
+    d = WORK / "capi"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _, demo = capi.build()
+    threads_exe = capi.compile_embedder(REPO / "tests" / "capi_threads.c",
+                                        d / "capi_threads")
+    emit({"phase": "capi_build", "seconds": time.perf_counter() - t0,
+          "card": gpu})
+    opts = ["%s=%s" % kv for kv in capi_sessions.OPTIONS.items()
+            if kv[0] != "id"]
+    env = capi.embed_env()
+    env.pop(device.ENV, None)
+
+    def start(exe, db, q, **extra):
+        return (exe, time.perf_counter(), subprocess.Popen(
+            [str(exe), str(db), str(q), "0.9"] + opts, env=dict(env, **extra),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+
+    def finish(started):
+        exe, t0, proc = started
+        try:
+            out, err = proc.communicate(timeout=CAPI_TIMEOUT)
+        finally:
+            proc.kill()
+        require(proc.returncode == 0, "%s failed: %s" % (
+            exe.name, err.decode(errors="replace")[-3000:]))
+        return out, time.perf_counter() - t0
+
+    def run(*a, **k):
+        return finish(start(*a, **k))
+
+    def check_launches(launches, who):
+        require(all(launches[k] > 0 for k in SEARCH_KERNELS),
+                "a kernel of the search path did not launch through the "
+                "C ABI (%s)" % who)
+        require(not any(cuda_lib.PLAIN_CALLS.values()),
+                "a plain version ran through the C ABI (%s)" % who)
+        require_wire(launches, False, "capi " + who)
+
+    # full width: the demo against SearchSession.search in process
+    queries = read_fasta(q_path)[:CAPI_QUERIES]
+    full_q = d / "queries.fasta"
+    full_q.write_bytes(b"".join(b">%s\n%s\n" % r for r in queries))
+    rows, wall = run(demo, db_path, full_q)
+    p = Parameters()
+    for name, value in capi_sessions.OPTIONS.items():
+        setattr(p, "opt_" + name, value)
+    t0 = time.perf_counter()
+    with api.session(p):
+        db, index = api.read_database(str(db_path), p)
+        with api.SearchSession(p, db, index) as ss:
+            hits = [[{"target_label": db.getheader(h.target).decode(
+                          "latin-1"), "id": h.id, "matches": h.matches,
+                      "mismatches": h.mismatches, "gaps": h.gaps}
+                     for h in ss.search(head, seq)]
+                    for head, seq in queries]
+    in_process = time.perf_counter() - t0
+    want = capi_sessions.tsv(queries, hits).encode()
+    require(rows == want and rows,
+            "the demo's rows differ from SearchSession.search's")
+
+    # full width through the shim in this process: the timed run
+    lib = capi.load()
+    require(lib.vstpu_api_init() == api.api_version(),
+            "vstpu_api_init failed")
+    times = []
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    results, _ = capi_sessions.search(lib, db_path, queries, times=times)
+    session_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    check_launches(launches, "full width")
+    require(capi_sessions.tsv(queries, results).encode() == rows,
+            "the shim's hits differ from the demo's rows (full width)")
+    first = times[0]
+    times.sort()
+    search_s = sum(times)
+    emit({"phase": "capi_full", "queries": len(queries), "db": DB_SIZE,
+          "seq_len": SEQ_LEN, "rows": rows.count(b"\n"),
+          "demo_wall_s": wall, "session_s": session_s, "search_s": search_s,
+          "queries_per_s": len(queries) / search_s,
+          "call_ms_median": 1e3 * times[len(times) // 2],
+          "call_ms_p99": 1e3 * times[min(len(times) - 1,
+                                         int(0.99 * len(times)))],
+          "call_ms_first": 1e3 * first, "call_ms_max": 1e3 * times[-1],
+          "launches": launches, "in_process_s": in_process, "card": gpu})
+
+    # the parity workload: cuda against cpu, and two threads (the cpu
+    # run and the two-thread embedder at once: neither is timed)
+    pdb, pq = write_parity_workload(d)
+    cuda_rows, cuda_s = run(demo, pdb, pq)
+    cpu_run = start(demo, pdb, pq, VSEARCH_TPU_TORCH_DEVICE="cpu")
+    thread_rows, _ = run(threads_exe, pdb, pq)
+    cpu_rows, both_s = finish(cpu_run)
+    require(cuda_rows == cpu_rows and cuda_rows,
+            "the demo's cuda and cpu rows differ")
+    require(thread_rows == cuda_rows,
+            "the two-thread embedder's rows differ from the demo's")
+    emit({"phase": "capi_parity", "rows": cuda_rows.count(b"\n"),
+          "equal": True, "cuda_s": cuda_s, "cpu_and_two_threads_s": both_s,
+          "card": gpu})
+
+    # the shim in this process on the parity workload, from this thread
+    # and from a new one
+    precs = read_fasta(pq)
+    by_thread = {}
+    for who in ("this_thread", "new_thread"):
+        box = {}
+
+        def drive():
+            box["results"], box["nested"] = capi_sessions.search(
+                lib, pdb, precs, nested=True)
+
+        cuda_lib.reset_launches()
+        if who == "this_thread":
+            drive()
+        else:
+            th = threading.Thread(target=drive)
+            th.start()
+            th.join()
+        require("results" in box, "the shim's session failed (%s)" % who)
+        check_launches(dict(cuda_lib.LAUNCHES), who)
+        require(box["nested"] == -1,
+                "a nested vstpu_session_begin returned %s" % box["nested"])
+        require(capi_sessions.tsv(precs, box["results"]).encode()
+                == cuda_rows, "the shim's hits differ from the demo's "
+                "rows (%s)" % who)
+        by_thread[who] = dict(cuda_lib.LAUNCHES)
+    lib.vstpu_api_finalize()
+    emit({"phase": "capi_launches", "launches": by_thread["this_thread"],
+          "new_thread_launches": by_thread["new_thread"], "card": gpu})
+    return launches
+
+
 def trace(run, match=()) -> dict:
     """run() once under torch.profiler: its wall seconds, the device's busy
     time, its idle share, the device time of the top kernels by name and
@@ -2732,18 +3114,23 @@ def main() -> int:
     phase_parity(gpu)
     phase_cluster_parity(gpu)
     match_220 = phase_allpairs_parity(gpu)
+    mismatch_100, records = phase_overflow_parity(gpu)
+    kern.update({o["kernel"]: o for o in records})
     phase_chimera_parity(gpu)
     phase_api_parity(gpu)
     phase_pipeline_parity(gpu)
     mb_db, mb_q, mb_uc, mb_b6 = phase_multiblock_parity(gpu)
     by_path = {"usearch_global": phase_full(gpu, db_path, q_path)}
     by_path["api_search"] = phase_api_full(gpu, db_path, q_path)
+    by_path["capi_search"] = phase_capi(gpu, db_path, q_path)
     by_path["usearch_global_mismatch_200"] = phase_full(
         gpu, db_path, q_path, MISMATCH_200, "full_mm200")
     by_path["cluster_size"] = phase_cluster_full(gpu, amp_path)
     by_path["allpairs_global"] = phase_allpairs_full(gpu, ap_path)
     # phase 3's --match 220 allpairs run, the path of K2m's 32-bit body
     by_path["allpairs_global_match_220"] = match_220
+    # phase 3's --match 1 --mismatch 100 runs, where pairs overflow
+    by_path.update(mismatch_100)
     by_path["uchime3_denovo"], records = phase_chimera_full(gpu, chim_path)
     kern.update({o["kernel"]: o for o in records})
     by_path.update(phase_sharded(gpu, sharded_runs(
@@ -2795,7 +3182,8 @@ def main() -> int:
         # walk round's and the chimera cell's largest wave; K4's above at
         # the index's full capacity, its prefix shape at the filled blocks
         # the cell's top-k scans
-        for shape in ("cluster", "walk", "prefix", "chimera"):
+        for shape in ("cluster", "walk", "prefix", "chimera", "single",
+                      "overflow"):
             if name + "_" + shape in kern:
                 other = kern[name + "_" + shape]
                 entry[shape + "_shape"] = {f: other[f]
