@@ -655,17 +655,16 @@ def phase_build(gpu):
           "card": gpu})
 
 
-def int_mm_yardstick(Kbits, bits, counts, name: str) -> float:
-    """ms of the library yardstick: the same counts as one int8 library
-    product of the one-hot query matrix and the unpacked bit matrix (never
-    used by the port), checked equal to the kernel's counts."""
+def int_mm_yardstick(bits, chunks) -> list:
+    """ms of the library yardstick for each (Kbits, counts, name) of
+    ``chunks``: the same counts as one int8 library product of the one-hot
+    query matrix and the unpacked bit matrix (never used by the port),
+    checked equal to the kernel's counts.  The bit matrix is unpacked once
+    for them all."""
     import torch
-    qp = Kbits.shape[0]
     V, words = bits.shape
-    dev = Kbits.device
+    dev = bits.device
     shifts = torch.arange(32, dtype=torch.int32, device=dev)
-    onehot = ((Kbits[:, :, None] >> shifts) & 1).reshape(qp, -1)[:, :V] \
-        .to(torch.int8).contiguous()
     # the unpacked bits (V, positions) are stored column-major, the layout
     # the int8 library product takes for its second operand
     unpacked_t = torch.empty((words * 32, V), dtype=torch.int8, device=dev)
@@ -673,11 +672,17 @@ def int_mm_yardstick(Kbits, bits, counts, name: str) -> float:
         unpacked_t[:, r0:r0 + 2048] = ((bits[r0:r0 + 2048, :, None] >> shifts)
                                        & 1).reshape(-1, words * 32).t()
     unpacked = unpacked_t.t()
-    lib = torch._int_mm(onehot, unpacked)
-    torch.cuda.synchronize()
-    require(torch.equal(lib, counts), "library product differs from " + name)
-    library_ms = timed(lambda: torch._int_mm(onehot, unpacked), 5)
-    del unpacked, unpacked_t, lib
+    library_ms = []
+    for Kbits, counts, name in chunks:
+        onehot = ((Kbits[:, :, None] >> shifts) & 1).reshape(
+            Kbits.shape[0], -1)[:, :V].to(torch.int8).contiguous()
+        lib = torch._int_mm(onehot, unpacked)
+        torch.cuda.synchronize()
+        require(torch.equal(lib, counts),
+                "library product differs from " + name)
+        library_ms.append(timed(lambda: torch._int_mm(onehot, unpacked), 5))
+        del onehot, lib
+    del unpacked, unpacked_t
     torch.cuda.empty_cache()
     return library_ms
 
@@ -791,7 +796,12 @@ def phase_kernels(gpu, db_path, q_path):
                20)
     plain_ms = timed(lambda: score_dense.counts_or_keys_plain(
         Kbits, bits, n_real, True), 1)
-    library_ms = int_mm_yardstick(Kbits, bits, counts, "K1")
+    # the yardstick also at one query's chunk, on the same unpacked bits
+    Kbits1 = single_query_bits(klists[0], V, bits.device)
+    library_ms, library_ms1 = int_mm_yardstick(bits, [
+        (Kbits, counts, "K1"),
+        (Kbits1, score_dense.counts_or_keys(Kbits1, bits, n_real, False),
+         "K1 at one query")])
     nnz = int(sum(k.size for k in klists))
     k1_bytes = (Kbits.numel() + bits.numel() + got.numel()) * 4
     k1_ops = 2 * nnz * words * 32
@@ -804,7 +814,8 @@ def phase_kernels(gpu, db_path, q_path):
                 "max_abs_err": err1,
                 "launches": cuda_lib.LAUNCHES["score_dense"], "card": gpu})
     emit(out[-1])
-    out.append(single_query_record(gpu, klists[0], V, bits, n_real))
+    out.append(single_query_record(gpu, Kbits1, klists[0].size, bits,
+                                   n_real, library_ms1))
     emit(out[-1])
 
     # K2 + K3: each query aligned with its top-1 candidate (the prefetch)
@@ -828,16 +839,25 @@ def phase_kernels(gpu, db_path, q_path):
     return {o["kernel"]: o for o in out}
 
 
-def single_query_record(gpu, kmers, V: int, bits, n_real: int) -> dict:
-    """K1 at the shape of one vstpu_search_single call (one query packed
-    into a chunk of 128 rows, as DeviceKmerIndex._chunk_topk packs a
-    chunk of at most 128) against its plain version, timed, with its
-    bound: the "single" shape of score_dense."""
+def single_query_bits(kmers, V: int, dev):
+    """Kbits of one vstpu_search_single call: one query packed into a chunk
+    of 128 rows, as DeviceKmerIndex._chunk_topk packs a chunk of at most
+    128."""
     import numpy as np
     import torch
+    from vsearch_tpu_torch.ops import score_dense
+    return torch.from_numpy(score_dense.pack_query_bits(
+        [kmers], 128, V).view(np.int32)).to(dev)
+
+
+def single_query_record(gpu, Kbits, ids: int, bits, n_real: int,
+                        library_ms: float) -> dict:
+    """K1 at the shape of one vstpu_search_single call (single_query_bits,
+    with ``ids`` k-mers) against its plain version, timed, with its bound
+    and the library yardstick's ms at that chunk: the "single" shape of
+    score_dense."""
+    import torch
     from vsearch_tpu_torch.ops import cuda_lib, score_dense
-    Kbits = torch.from_numpy(score_dense.pack_query_bits(
-        [kmers], 128, V).view(np.int32)).to(bits.device)
     words = bits.shape[1]
     cuda_lib.reset_launches()
     got = score_dense.counts_or_keys(Kbits, bits, n_real, True)
@@ -852,13 +872,12 @@ def single_query_record(gpu, kmers, V: int, bits, n_real: int) -> dict:
         Kbits, bits, n_real, True), 1)
     # data-dependent: the index rows of the query's k-mers, not the whole
     # index
-    nbytes = (Kbits.numel() + kmers.size * words + got.numel()) * 4
-    bound_ms, bound_by = bound(nbytes, 2 * kmers.size * words * 32,
-                               INT8_TC_OPS)
+    nbytes = (Kbits.numel() + ids * words + got.numel()) * 4
+    bound_ms, bound_by = bound(nbytes, 2 * ids * words * 32, INT8_TC_OPS)
     return {"kernel": "score_dense_single",
-            "shape": {"qp": Kbits.shape[0], "queries": 1, "V": V,
-                      "words": words, "ids": int(kmers.size)},
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "shape": {"qp": Kbits.shape[0], "queries": 1,
+                      "V": bits.shape[0], "words": words, "ids": int(ids)},
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": err, "launches": launches, "card": gpu}
 
@@ -1131,7 +1150,8 @@ def ranked_record(gpu, name: str, Kbits, bits, rank, nnz: int,
     plain_ms = timed(lambda: score_dense.ranked_keys_plain(
         Kbits, bits, rank), 1)
     counts = score_dense.counts_or_keys(Kbits, bits, 0, False)
-    library_ms = int_mm_yardstick(Kbits, bits, counts, "K4 (%s)" % name)
+    library_ms, = int_mm_yardstick(bits, [(Kbits, counts,
+                                           "K4 (%s)" % name)])
     del counts
     k4_bytes = (Kbits.numel() + bits.numel() + rank.numel()
                 + got.numel()) * 4

@@ -119,6 +119,9 @@ def main() -> int:
     with open("%s.rank%d.json" % (spec["report"], rank), "w") as fh:
         json.dump({"rank": rank, "world": world, "runs": reports,
                    "foreign_modules": loaded}, fh)
+    # the group's teardown, which exit would run, here where its failure
+    # shows
+    distributed.shutdown()
     return 0
 
 

@@ -12,8 +12,9 @@ the dry run's sharded_count_topk and sharded_nw_scores.  A run where rank
 1 measures another host rate than rank 0 must still finish: the route of
 an alignment batch is rank 0's.  Each rank reports the sharded classes it
 built, its collectives, and that it loaded neither jax nor vsearch_tpu.
-These are the counterparts of tests/test_multichip.py and
-tests/test_distributed.py.
+A 2-rank launch checks that the group's teardown at exit joins gloo's
+worker threads before Python finalizes.  These are the counterparts of
+tests/test_multichip.py and tests/test_distributed.py.
 """
 
 import json
@@ -151,7 +152,9 @@ def _spec(files, world):
     return path
 
 
-def _launch(files, world):
+def _env():
+    """A launch's environment: the port on the CPU, no rank variables of
+    an enclosing launch."""
     env = dict(os.environ)
     env["VSEARCH_TPU_TORCH_DEVICE"] = "cpu"
     env["OMP_NUM_THREADS"] = "1"
@@ -160,15 +163,32 @@ def _launch(files, world):
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT"):
         env.pop(var, None)
+    return env
+
+
+def _launch(files, world):
     cmd = [sys.executable]
     if world > 1:
+        # each rank's stderr in a file of its own (_failure)
         cmd += ["-m", "torch.distributed.run", "--standalone",
-                "--nproc_per_node", str(world)]
+                "--nproc_per_node", str(world), "--log-dir",
+                str(files["dir"] / ("logs.w%d" % world)), "--redirects", "2"]
     # a session of its own, so that a failure stops every rank
     return subprocess.Popen(cmd + [str(DRIVER), str(_spec(files, world))],
-                            cwd=files["dir"], env=env,
+                            cwd=files["dir"], env=_env(),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
+
+
+def _failure(d, world, rc, err):
+    """A failed launch: its world size and exit code, the launcher's
+    stderr and every rank's."""
+    parts = ["the %d-rank launch exited %d" % (world, rc), err[-4000:]]
+    for log in sorted((d / ("logs.w%d" % world)).glob(
+            "*/attempt_*/*/stderr.log")):
+        parts.append("rank %s stderr:\n%s" % (log.parent.name,
+                                               log.read_text()[-4000:]))
+    return "\n".join(parts)
 
 
 @pytest.fixture(scope="module")
@@ -191,7 +211,8 @@ def runs(tmp_path_factory, families):  # noqa: F811 (fixture)
         reports = {}
         for w, proc in procs.items():
             _, err = proc.communicate(timeout=600)
-            assert proc.returncode == 0, err[-4000:]
+            assert proc.returncode == 0, _failure(d, w, proc.returncode,
+                                                  err)
             reports[w] = [json.loads((d / ("w%d.rank%d.json" % (w, r)))
                                      .read_text())
                           for r in range(w)]
@@ -309,6 +330,48 @@ def test_sharded_fns_match_numpy(runs):
         order = np.lexsort((np.arange(512), -counts[q]))[:5]
         assert one["idx"][q] == order.tolist()
         assert one["counts"][q] == counts[q][order].tolist()
+
+
+# a rank that gathers once and exits; a handler registered before the
+# group forms runs after the port's teardown and lists the backend's
+# threads that are left
+TEARDOWN = """
+import atexit, json, os, sys
+def gloo_threads():
+    names = (open("/proc/self/task/%s/comm" % t).read().strip()
+             for t in os.listdir("/proc/self/task"))
+    return sorted(n for n in names if "gloo" in n)
+def report():
+    with open("teardown.rank%s.json" % os.environ["RANK"], "w") as fh:
+        json.dump({"running": running, "at_exit": gloo_threads()}, fh)
+atexit.register(report)
+import torch
+from vsearch_tpu_torch.parallel import distributed, mesh
+distributed.maybe_initialize()
+m = mesh.active_mesh()
+got = m.all_gather(torch.full((4,), m.rank, dtype=torch.int32))
+assert got.tolist() == [r for r in range(m.size) for _ in range(4)]
+running = gloo_threads()
+"""
+
+
+def test_exit_joins_the_backend_threads(tmp_path):
+    """The group is torn down at exit before Python finalizes: no gloo
+    worker thread is left to take the GIL afterwards (one that does is
+    unwound through C++, and the rank aborts with "terminate called
+    without an active exception")."""
+    script = tmp_path / "teardown.py"
+    script.write_text(TEARDOWN)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", str(script)], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    for r in range(2):
+        rep = json.loads((tmp_path / ("teardown.rank%d.json" % r))
+                         .read_text())
+        assert "pt_gloo_runloop" in rep["running"], rep
+        assert rep["at_exit"] == [], rep
 
 
 def test_local_device_follows_local_rank():

@@ -82,7 +82,7 @@ def maybe_initialize(backend: Optional[str] = None,
         backend or ("nccl" if dev.type == "cuda" else "gloo"),
         init_method="env://", world_size=world,
         rank=int(os.environ["RANK"]))
-    atexit.register(dist.destroy_process_group)
+    atexit.register(shutdown)
     _initialized = True
     _device = dev
     device_mod.select(str(dev))
@@ -91,6 +91,26 @@ def maybe_initialize(backend: Optional[str] = None,
         sys.stdout = open(os.devnull, "w")
         sys.stderr = open(os.devnull, "w")
     return True
+
+
+def shutdown() -> None:
+    """Tear the process group down (at exit; once).
+
+    Destroying the group joins its backend's worker threads.  They must be
+    gone before the interpreter finalizes: a gloo worker drops the tensors
+    of a collective it ran after the collective has returned, which takes
+    the GIL, and a thread that takes the GIL while Python finalizes is
+    unwound through C++ and aborts the process ("terminate called without
+    an active exception", the rank exits -6 and torchrun fails the launch).
+    The group is destroyed only when nothing holds it any more, so no
+    object of the port keeps it (parallel/mesh.Mesh takes the default
+    group)."""
+    global _device
+    if _device is None:
+        return
+    _device = None
+    import torch.distributed as dist
+    dist.destroy_process_group()
 
 
 def select_device(name: Optional[str] = None) -> torch.device:

@@ -38,7 +38,9 @@ class Mesh:
 
     def __init__(self, device: torch.device) -> None:
         import torch.distributed as dist
-        self.group = dist.group.WORLD
+        # the default group, which the collectives take: holding it here
+        # would keep it, and its worker threads, past
+        # distributed.shutdown
         self.size = dist.get_world_size()
         self.rank = dist.get_rank()
         self.device = device
@@ -57,7 +59,7 @@ class Mesh:
         raw = x.reshape(x.shape[0], math.prod(x.shape[1:])).view(
             torch.uint8)
         parts = [torch.empty_like(raw) for _ in range(self.size)]
-        dist.all_gather(parts, raw, group=self.group)
+        dist.all_gather(parts, raw)
         out = torch.cat(parts).view(x.dtype).reshape(
             (x.shape[0] * self.size,) + tuple(x.shape[1:]))
         return out.movedim(0, dim)
@@ -71,7 +73,7 @@ class Mesh:
         COLLECTIVES["broadcast"] += 1
         t = torch.tensor([int(flag)], dtype=torch.int32,
                          device=self.comm_device)
-        dist.broadcast(t, 0, group=self.group)
+        dist.broadcast(t, 0)
         return bool(t.item())
 
     def rows(self, n: int) -> Optional[Tuple[int, int]]:
