@@ -1503,46 +1503,27 @@ class allpairs_counts:
     through the device pipeline and the batches it cuts them into
     (AllPairsDevice.batch), the overflow pairs, the pairs the stats accept
     and the pairs it aligns again through SearchContext.align_pairs
-    (overflow and accepted)."""
+    (overflow and accepted): the program's own counters
+    (utils/phasetimer ``tally``), turned on for the block."""
+
+    NAMES = {"pairs": "allpairs.pairs", "batches": "allpairs.batches",
+             "overflow": "allpairs.overflow",
+             "accepted": "allpairs.accepted",
+             "realigned": "allpairs.realigned"}
 
     def __enter__(self):
-        from vsearch_tpu_torch.commands import allpairs
-        from vsearch_tpu_torch.core.search import SearchContext
-        from vsearch_tpu_torch.ops.allpairs_dev import AllPairsDevice
-        self.pairs = self.batches = 0
-        self.overflow = self.accepted = self.realigned = 0
-        self._saved = (AllPairsDevice.run, allpairs._accept_mask,
-                       SearchContext.align_pairs)
-        run, accept, align = self._saved
-
-        def counted_run(this, qpos, tpos):
-            over, stats = run(this, qpos, tpos)
-            self.pairs += len(qpos)
-            self.batches += -(-len(qpos) // this.batch)
-            self.overflow += int(over.sum())
-            self._over = over
-            return over, stats
-
-        def counted_accept(*a):
-            ok = accept(*a)
-            self.accepted += int((ok & ~self._over).sum())
-            return ok
-
-        def counted_align(this, pairs):
-            self.realigned += len(pairs)
-            return align(this, pairs)
-
-        AllPairsDevice.run = counted_run
-        allpairs._accept_mask = counted_accept
-        SearchContext.align_pairs = counted_align
+        from vsearch_tpu_torch.utils import phasetimer
+        self._enabled = phasetimer.ENABLED
+        self._before = dict(phasetimer.tally)
+        phasetimer.ENABLED = True
         return self
 
     def __exit__(self, *exc):
-        from vsearch_tpu_torch.commands import allpairs
-        from vsearch_tpu_torch.core.search import SearchContext
-        from vsearch_tpu_torch.ops.allpairs_dev import AllPairsDevice
-        (AllPairsDevice.run, allpairs._accept_mask,
-         SearchContext.align_pairs) = self._saved
+        from vsearch_tpu_torch.utils import phasetimer
+        phasetimer.ENABLED = self._enabled
+        for attr, name in self.NAMES.items():
+            setattr(self, attr, phasetimer.tally.get(name, 0)
+                    - self._before.get(name, 0))
 
     def record(self) -> dict:
         return {"pairs": self.pairs, "batches": self.batches,
@@ -2828,8 +2809,12 @@ def trace(run, match=()) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         seconds = run()
+    # the program's spans (utils/phasetimer, "vs.*") show on the device's
+    # timeline too, as annotations spanning work and gaps alike
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not (getattr(e, "is_user_annotation", False)
+                            or e.name.startswith("vs.")))
     busy_us, end_us, by_name = 0.0, float("-inf"), {}
     for start, stop, name in spans:
         busy_us += max(0.0, stop - max(start, end_us))

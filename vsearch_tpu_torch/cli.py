@@ -778,6 +778,12 @@ def main(argv: Optional[List[str]] = None,
     Under torchrun (WORLD_SIZE above 1) every rank runs the command over
     its shard of the device state, and rank 0 writes the outputs
     (parallel/distributed.py)."""
+    from .utils.phasetimer import phase
+    with phase("cli"):
+        return _main(argv, device)
+
+
+def _main(argv: Optional[List[str]], device: Optional[str]) -> int:
     from .parallel import distributed
     # a process group from torchrun's environment: before any device use
     distributed.maybe_initialize(device=device)

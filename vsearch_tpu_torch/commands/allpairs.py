@@ -35,7 +35,7 @@ from ..core.searchcore import (Hit, QueryInfo, align_trim,
                                search_acceptable_aligned,
                                search_acceptable_unaligned,
                                unaligned_gate_active)
-from ..utils.phasetimer import phase
+from ..utils.phasetimer import add, phase
 
 
 from ..io.openfile import open_output_opt as _open  # noqa: E402
@@ -116,17 +116,20 @@ def allpairs_global(params: Parameters) -> None:
         fp_notmatched = _open(stack, params.opt_notmatched, "--notmatched")
 
         db = Database()
-        db.read(params.opt_allpairs_global, params)
+        with phase("read"):
+            db.read(params.opt_allpairs_global, params)
         if fp_samout is not None:
             results.show_samheader(fp_samout, params, params.opt_allpairs_global, db)
-        if params.opt_qmask == Masking.dust:
-            mask_mod.dust_all(db, params)
-        elif params.opt_qmask == Masking.soft and params.opt_hardmask:
-            mask_mod.hardmask_all(db)
+        with phase("mask"):
+            if params.opt_qmask == Masking.dust:
+                mask_mod.dust_all(db, params)
+            elif params.opt_qmask == Masking.soft and params.opt_hardmask:
+                mask_mod.hardmask_all(db)
 
         from ..index import KmerIndex
-        ctx = SearchContext.build(params, db, index=KmerIndex(
-            params.opt_wordlength))
+        with phase("context"):
+            ctx = SearchContext.build(params, db, index=KmerIndex(
+                params.opt_wordlength))
         eff = ctx.params
 
         state = {"qmatches": 0, "matched": 0, "notmatched": 0}
@@ -147,10 +150,12 @@ def allpairs_global(params: Parameters) -> None:
                                     query_head, qseq, None, db)
             if toreport:
                 top_hit_id = hits[0].id
+                written = 0
                 for t in range(toreport):
                     hp = hits[t]
                     if params.opt_top_hits_only and hp.id < top_hit_id:
                         break
+                    written += 1
                     if fp_fastapairs is not None:
                         results.show_fastapairs_one(fp_fastapairs, params,
                                                     hp, query_head, qseq,
@@ -172,6 +177,7 @@ def allpairs_global(params: Parameters) -> None:
                     if fp_blast6out is not None:
                         results.show_blast6_one(fp_blast6out, params, hp,
                                                 query_head, qseqlen, db)
+                add("allpairs.rows", written)
             else:
                 if fp_uc is not None:
                     results.show_uc_one(fp_uc, params, None, query_head,
@@ -244,6 +250,9 @@ def allpairs_global(params: Parameters) -> None:
         if seqcount > 0:
             msg += " (%.2f%%)" % (100.0 * state["qmatches"] / seqcount)
         message(params, msg)
+        # the buffered outputs flushed and closed
+        with phase("close"):
+            stack.close()
 
 
 def _targets_for(params, eff, db, qi, seqcount):
@@ -299,52 +308,61 @@ def _allpairs_fast(params, eff, db, ctx, align_progress, make_qi,
     from ..ops.allpairs_dev import AllPairsDevice
     seqcount = db.seqcount
     seqs = [db.getsequence(i) for i in range(seqcount)]
-    dev = AllPairsDevice(ctx.scheme, seqs, device_mod.current())
+    with phase("upload"):
+        dev = AllPairsDevice(ctx.scheme, seqs, device_mod.current())
     lens = np.fromiter((db.getsequencelen(i) for i in range(seqcount)),
                        dtype=np.int64, count=seqcount)
 
     # the triangle in (q asc, t asc) order
     qis = {}
-    if unaligned_gate_active(eff):
-        qs: List[int] = []
-        ts: List[int] = []
-        for q in range(seqcount):
-            align_progress.update(align_progress._counter
-                                  + (seqcount - q - 1))
-            qi = qis.setdefault(q, make_qi(q))
-            targets = _targets_for(params, eff, db, qi, seqcount)
-            qs.extend([q] * len(targets))
-            ts.extend(targets)
-        qpos = np.asarray(qs, dtype=np.int64)
-        tpos = np.asarray(ts, dtype=np.int64)
-    else:
-        qpos, tpos = np.triu_indices(seqcount, 1)
-        align_progress.update(align_progress._counter + qpos.size)
+    with phase("triangle"):
+        if unaligned_gate_active(eff):
+            qs: List[int] = []
+            ts: List[int] = []
+            for q in range(seqcount):
+                align_progress.update(align_progress._counter
+                                      + (seqcount - q - 1))
+                qi = qis.setdefault(q, make_qi(q))
+                targets = _targets_for(params, eff, db, qi, seqcount)
+                qs.extend([q] * len(targets))
+                ts.extend(targets)
+            qpos = np.asarray(qs, dtype=np.int64)
+            tpos = np.asarray(ts, dtype=np.int64)
+        else:
+            qpos, tpos = np.triu_indices(seqcount, 1)
+            align_progress.update(align_progress._counter + qpos.size)
 
     overflow, stats = dev.run(qpos, tpos)
 
     # vectorized acceptance over the whole triangle
     with phase("accept"):
         ok = _accept_mask(eff, stats, lens[qpos], lens[tpos]) & ~overflow
-    accepted = {}        # query_no -> list of target
-    for q, t in zip(qpos[ok].tolist(), tpos[ok].tolist()):
-        accepted.setdefault(q, []).append(t)
+    with phase("collect"):
+        accepted = {}        # query_no -> list of target
+        qok = qpos[ok].tolist()
+        for q, t in zip(qok, tpos[ok].tolist()):
+            accepted.setdefault(q, []).append(t)
 
-    # overflow pairs: exact scalar path decides (sentinel -> linmem)
-    slow = list(zip(qpos[overflow].tolist(), tpos[overflow].tolist()))
-    slow_results = {}
-    if slow:
-        res = ctx.align_pairs([(seqs[q], t) for q, t in slow])
-        for (q, t), r in zip(slow, res):
-            if build_hit(qis.setdefault(q, make_qi(q)), t, r) is not None:
-                accepted.setdefault(q, []).append(t)
-                slow_results[(q, t)] = r
+        # overflow pairs: exact scalar path decides (sentinel -> linmem)
+        slow = list(zip(qpos[overflow].tolist(), tpos[overflow].tolist()))
+        add("allpairs.accepted", len(qok))
+        add("allpairs.overflow", len(slow))
+        slow_results = {}
+        if slow:
+            add("allpairs.realigned", len(slow))
+            res = ctx.align_pairs([(seqs[q], t) for q, t in slow])
+            for (q, t), r in zip(slow, res):
+                qi = qis.setdefault(q, make_qi(q))
+                if build_hit(qi, t, r) is not None:
+                    accepted.setdefault(q, []).append(t)
+                    slow_results[(q, t)] = r
 
-    # realign accepted pairs for CIGARs (rare), then emit in query order
-    pending = [(q, t) for q in sorted(accepted) for t in accepted[q]
-               if (q, t) not in slow_results]
+        # realign accepted pairs for CIGARs (rare), then emit in query order
+        pending = [(q, t) for q in sorted(accepted) for t in accepted[q]
+                   if (q, t) not in slow_results]
     results_map = dict(slow_results)
     if pending:
+        add("allpairs.realigned", len(pending))
         res = ctx.align_pairs([(seqs[q], t) for q, t in pending])
         results_map.update(zip(pending, res))
     with phase("emit"):

@@ -33,7 +33,7 @@ from . import cuda_lib
 from .nw import DIR_EXTLEFT, DIR_EXTUP, DIR_LEFT, DIR_UP
 from .nw_batch import OP_D, OP_I, OP_M, OP_NONE, encode_padded
 from .nw_rowscan import build_forward
-from ..utils.phasetimer import phase
+from ..utils.phasetimer import add, phase
 
 # stats columns (the JAX package's order)
 STATS_COLUMNS = ("aligned", "matches", "indels", "gap_opens", "first_op",
@@ -217,6 +217,8 @@ class AllPairsDevice:
         over = torch.empty(P, dtype=torch.bool, device=dev)
         with phase("dispatch"):
             B = min(self.batch, P)
+            add("allpairs.pairs", P)
+            add("allpairs.batches", -(-P // B))
             dirs_buf = torch.empty(W * W * B, dtype=torch.uint16, device=dev)
             mr_buf = torch.empty(W * W * B, dtype=torch.uint8, device=dev)
             qpos_d = torch.from_numpy(
@@ -240,7 +242,8 @@ class AllPairsDevice:
                 host.copy_(packed, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
-                event.synchronize()
+                with phase("stats_wait"):
+                    event.synchronize()
                 packed = host
             arr = packed.numpy()
         return arr[:, 8] != 0, arr[:, :8]

@@ -47,6 +47,7 @@ from .nw import SHRT_MAX, AlignmentResult, ScoreScheme
 from .score_dense import POS_SENTINEL
 from ..parallel.mesh import active_mesh
 from ..utils.maps import CHRMAP_4BIT
+from ..utils.phasetimer import phase
 
 # op codes emitted by the backtrack
 OP_NONE, OP_M, OP_D, OP_I = 0, 1, 2, 3
@@ -561,7 +562,8 @@ class BatchAligner:
 
     def _collect(self, qseqs: Sequence[bytes], tseqs: Sequence[bytes],
                  handle) -> List[AlignmentResult]:
-        score, overflow, ops = (t.cpu().numpy() for t in handle)
+        with phase("align_wait"):
+            score, overflow, ops = (t.cpu().numpy() for t in handle)
         return self.assemble_columns(score, overflow, ops, qseqs, tseqs)
 
     def assemble_columns(self, score, overflow, ops: np.ndarray,
