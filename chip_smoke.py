@@ -1501,7 +1501,8 @@ def phase_allpairs_kernels(gpu, ap_path):
 class allpairs_counts:
     """Counts, in the allpairs command's fast path, the pairs it sends
     through the device pipeline and the batches it cuts them into
-    (AllPairsDevice.batch), the overflow pairs, the pairs the stats accept
+    (AllPairsDevice.batch), the overflow pairs, the pairs the stats accept,
+    the pairs whose index it fetches to the host (accepted and overflow)
     and the pairs it aligns again through SearchContext.align_pairs
     (overflow and accepted): the program's own counters
     (utils/phasetimer ``tally``), turned on for the block."""
@@ -1509,6 +1510,7 @@ class allpairs_counts:
     NAMES = {"pairs": "allpairs.pairs", "batches": "allpairs.batches",
              "overflow": "allpairs.overflow",
              "accepted": "allpairs.accepted",
+             "fetched": "allpairs.fetched",
              "realigned": "allpairs.realigned"}
 
     def __enter__(self):
@@ -1529,6 +1531,7 @@ class allpairs_counts:
         return {"pairs": self.pairs, "batches": self.batches,
                 "overflow_pairs": self.overflow,
                 "accepted_by_stats": self.accepted,
+                "fetched_pairs": self.fetched,
                 "realigned_pairs": self.realigned}
 
 
@@ -1871,6 +1874,9 @@ def phase_allpairs_parity(gpu):
                     == launches[k2m],
                     "K2m/K5 launches do not fit the path (%s)" % name)
             require_wire(launches, False, "allpairs " + name)
+            require(counts.fetched == counts.accepted + counts.overflow,
+                    "%d pairs fetched for %d accepted and %d overflowing"
+                    % (counts.fetched, counts.accepted, counts.overflow))
             if name == "match_overflow":
                 require(0 < counts.overflow < counts.pairs,
                         "%d of %d pairs overflowed under --match 220"

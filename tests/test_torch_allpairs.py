@@ -27,6 +27,8 @@ from .conftest import run_ours
 from .test_allpairs_fast import CASES, pairs_fasta  # noqa: F401 (fixture)
 from .test_torch_nw import _pairs, _schemes, _wire, random_seq
 from .test_torch_search import run_port
+from .torch_helpers import (ACCEPT_TERMS, COVERAGE_TRAPS, accept_options,
+                            accept_rows)
 
 SCHEMES = ["default", "iupac", "n_mismatch", "overflow"]
 M = N = 16
@@ -261,6 +263,44 @@ def test_allpairs_matches_jax(pairs_fasta, tmp_path, name,  # noqa: F811
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
     assert not [m for m in loaded
                 if m == "vsearch_tpu" or m.startswith("vsearch_tpu.")]
+
+
+@pytest.mark.parametrize("iddef", range(5))
+def test_accept_mask_matches_jax(iddef):
+    """The port's accept cascade over CPU tensors against the JAX
+    package's numpy one, mask for mask: every term on, then each term
+    alone, on rows at the terms' thresholds and at the zero
+    denominators."""
+    from vsearch_tpu.commands.allpairs import _accept_mask
+    from vsearch_tpu.params import Parameters as JaxParameters
+    from vsearch_tpu_torch.commands.allpairs import accept_mask
+    from vsearch_tpu_torch.params import Parameters
+    n = 4096
+    stats, qlen, tlen = accept_rows(2100 + iddef, n)
+    tensors = [torch.from_numpy(a) for a in (stats, qlen, tlen)]
+    sets = [("all", ACCEPT_TERMS)] + [(k, {k: v})
+                                      for k, v in ACCEPT_TERMS.items()]
+    for name, opts in sets:
+        got = accept_mask(accept_options(Parameters, iddef, **opts),
+                          *tensors)
+        want = _accept_mask(accept_options(JaxParameters, iddef, **opts),
+                            stats, qlen, tlen)
+        assert got.dtype == torch.bool and got.shape == want.shape
+        assert np.array_equal(got.numpy(), want), name
+        if name != "all":
+            # the term alone rejects some drawn rows and passes others
+            assert 0 < int(want[-n:].sum()) < n, name
+        if name in ("all", "opt_id"):
+            # one count under 100 x --id, on it, and one over
+            assert got[:3].tolist() == [False, True, True], name
+    # the coverage traps: float32 would decide them the other way
+    for k, (key, cov, length, cols) in enumerate(COVERAGE_TRAPS):
+        f32 = float((torch.tensor([length]) * cov)[0])
+        assert (cols >= cov * length) != (cols >= f32)
+        row = len(stats) - n - len(COVERAGE_TRAPS) + k
+        got = accept_mask(accept_options(Parameters, iddef, **{key: cov}),
+                          *(t[row:row + 1] for t in tensors))
+        assert got.tolist() == [cols >= cov * length], key
 
 
 def _key_of(**opts) -> tuple:

@@ -22,7 +22,8 @@ from vsearch_tpu_torch.ops import (allpairs_dev, cuda_lib, nw_batch,
 from vsearch_tpu_torch.ops.nw import ScoreScheme
 from vsearch_tpu_torch.params import Parameters
 
-from .torch_helpers import longest_gap_run
+from .torch_helpers import (ACCEPT_TERMS, accept_options, accept_rows,
+                            longest_gap_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -844,3 +845,36 @@ def _left_ends_run(dirs, ops, qlen, tlen) -> bool:
                 return True
             i, j, prev = i - (op != 3), j - (op != 2), op
     return False
+
+
+@pytest.mark.parametrize("iddef,n", [(d, 4096) for d in range(5)]
+                         + [(2, 2048 * 2047 // 2)],
+                         ids=["iddef%d" % d for d in range(5)] + ["cell"])
+def test_accept_mask_and_fetch_cuda_match_cpu(cuda_device, iddef, n):
+    """The allpairs accept cascade on the card gives the CPU's mask, every
+    term on and each term alone, at the thresholds and zero denominators
+    of accept_rows and over the cell's whole triangle; fetch_rows on the
+    card gives the CPU's accepted and overflow indices, in the same
+    ascending order."""
+    from vsearch_tpu_torch.commands.allpairs import accept_mask
+    stats, qlen, tlen = accept_rows(3100 + iddef, n)
+    cpu = [torch.from_numpy(a) for a in (stats, qlen, tlen)]
+    card = [t.to(cuda_device) for t in cpu]
+    sets = [ACCEPT_TERMS] + [{k: v} for k, v in ACCEPT_TERMS.items()]
+    for opts in sets:
+        eff = accept_options(Parameters, iddef, **opts)
+        want = accept_mask(eff, *cpu)
+        got = accept_mask(eff, *card)
+        assert got.device.type == "cuda" and got.dtype == torch.bool
+        assert torch.equal(got.cpu(), want), opts
+    over = torch.from_numpy(np.random.default_rng(iddef).random(len(stats))
+                            < 0.005)
+    ok = want & ~over
+    want_rows = allpairs_dev.fetch_rows(ok, over)
+    got_rows = allpairs_dev.fetch_rows(ok.to(cuda_device),
+                                       over.to(cuda_device))
+    for w, g in zip(want_rows, got_rows):
+        assert g.dtype == np.int64 and np.array_equal(g, w)
+        assert w.size > 0 and (np.diff(w) > 0).all()
+    assert np.array_equal(want_rows[0], np.flatnonzero(ok.numpy()))
+    assert np.array_equal(want_rows[1], np.flatnonzero(over.numpy()))

@@ -6,11 +6,12 @@ every target i+1..n-1 (no k-mer index), accepted hits sorted by
 
 Device stats pipeline (ops/allpairs_dev.py): the sequence codes upload
 once, the triangular schedule runs as index-pair batches through the
-forward with the match plane (K2m) and the stats walk (K5), the per-pair
-STATISTICS (8 ints and an overflow flag) come back in one copy, the
-accept/reject cascade runs vectorized on host, and only accepted hits are
-aligned again for their CIGARs.  It runs on the port's device, the CUDA
-card or, asked for, the CPU (the kernels' plain versions).  The generic
+forward with the match plane (K2m) and the stats walk (K5), the
+accept/reject cascade runs over the per-pair statistics where they are
+(accept_mask), and only the indices of the accepted and the overflowing
+pairs come back, in one copy; only those pairs are aligned again, for
+their CIGARs.  It runs on the port's device, the CUDA card or, asked for,
+the CPU (the kernels' plain versions).  The generic
 path, which aligns every pair through the batched aligner, takes
 --acceptall (every pair is emitted, so per-pair CIGARs are needed anyway),
 infinite gap penalties, fewer than 16 sequences and lengths outside
@@ -23,6 +24,7 @@ from contextlib import ExitStack
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..params import Masking, Parameters
 from ..db import Database
@@ -41,61 +43,65 @@ from ..utils.phasetimer import add, phase
 from ..io.openfile import open_output_opt as _open  # noqa: E402
 
 
-def _accept_mask(eff: Parameters, stats: np.ndarray, qlens: np.ndarray,
-                 tlens: np.ndarray) -> np.ndarray:
-    """Vectorized search_acceptable_aligned (searchcore.cpp:664-737) over
-    device stats rows [aligned, matches, indels, gap_opens, first_op,
-    first_len, last_op, last_len]; float math is IEEE double in the same
-    expression order as the scalar path, so the mask is exact."""
-    aligned = stats[:, 0].astype(np.float64)
-    matches = stats[:, 1].astype(np.int64)
-    indels = stats[:, 2].astype(np.int64)
-    gap_opens = stats[:, 3].astype(np.int64)
-    first_op = stats[:, 4]
-    first_len = stats[:, 5].astype(np.int64)
-    last_op = stats[:, 6]
-    last_len = stats[:, 7].astype(np.int64)
-
-    nwalnlen = stats[:, 0].astype(np.int64)
+def accept_mask(eff: Parameters, stats: torch.Tensor, qlens: torch.Tensor,
+                tlens: torch.Tensor) -> torch.Tensor:
+    """search_acceptable_aligned (searchcore.cpp:664-737) over stats rows
+    [aligned, matches, indels, gap_opens, first_op, first_len, last_op,
+    last_len] and the pairs' lengths, on the tensors' device: a (P,) bool
+    mask.  Counts are int64 and the float math IEEE double in the scalar
+    path's expression order, one eager op at a time (nothing fused, so no
+    rounding is contracted or reordered), so the mask is exact on either
+    device.  Python floats multiply float64 tensors only (times an integer
+    tensor torch computes in float32), and every divisor is a tensor (the
+    card divides by a Python scalar as a product by its reciprocal).  A
+    0/0 identity is NaN, which every comparison rejects."""
+    i64, f64 = torch.int64, torch.float64
+    (nwalnlen, matches, indels, gap_opens, first_op, first_len, last_op,
+     last_len) = stats.to(i64).unbind(1)
     mism = nwalnlen - matches - indels
 
-    tql = np.where(first_op == 2, first_len, 0)
-    ttl = np.where(first_op == 3, first_len, 0)
-    tqr = np.where(last_op == 2, last_len, 0)
-    ttr = np.where(last_op == 3, last_len, 0)
-    tqr = np.where(tql >= nwalnlen, 0, tqr)
-    ttr = np.where(ttl >= nwalnlen, 0, ttr)
+    tql = torch.where(first_op == 2, first_len, 0)
+    ttl = torch.where(first_op == 3, first_len, 0)
+    tqr = torch.where(last_op == 2, last_len, 0)
+    ttr = torch.where(last_op == 3, last_len, 0)
+    tqr = torch.where(tql >= nwalnlen, 0, tqr)
+    ttr = torch.where(ttl >= nwalnlen, 0, ttr)
 
     int_alnlen = nwalnlen - tql - ttl - tqr - ttr
     int_indels = indels - tql - ttl - tqr - ttr
-    int_gaps = (gap_opens - (tql + ttl > 0).astype(np.int64)
-                - (tqr + ttr > 0).astype(np.int64))
+    int_gaps = (gap_opens - (tql + ttl > 0).to(i64)
+                - (tqr + ttr > 0).to(i64))
 
-    shortest = np.minimum(qlens, tlens).astype(np.float64)
-    longest = np.maximum(qlens, tlens).astype(np.float64)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        id0 = np.where(shortest > 0, 100.0 * matches / shortest, 0.0)
-        id1 = np.where(nwalnlen > 0, 100.0 * matches / aligned, 0.0)
-        id2 = np.where(int_alnlen > 0,
-                       100.0 * matches / int_alnlen.astype(np.float64), 0.0)
-        id3 = np.maximum(
-            0.0, 100.0 * (1.0 - (1.0 * (mism + gap_opens) / longest)))
-        mid_frac = 100.0 * matches / (matches + mism).astype(np.float64)
-    ids = [id0, id1, id2, id3, id1][eff.opt_iddef]
+    qf, tf = qlens.to(f64), tlens.to(f64)
+    m100 = 100.0 * matches.to(f64)
+    if eff.opt_iddef == 0:
+        shortest = torch.minimum(qf, tf)
+        ids = torch.where(shortest > 0, m100 / shortest, 0.0)
+    elif eff.opt_iddef == 2:
+        ids = torch.where(int_alnlen > 0, m100 / int_alnlen.to(f64), 0.0)
+    elif eff.opt_iddef == 3:
+        longest = torch.maximum(qf, tf)
+        ids = torch.maximum(
+            qf.new_zeros(()),
+            100.0 * (1.0 - (mism + gap_opens).to(f64) / longest))
+    else:   # 1 and 4
+        ids = torch.where(nwalnlen > 0, m100 / nwalnlen.to(f64), 0.0)
+    mid_frac = m100 / (matches + mism).to(f64)
 
     ok = ((ids >= 100.0 * eff.opt_weak_id)
           & (mism <= eff.opt_maxsubs)
           & (int_gaps <= eff.opt_maxgaps)
           & (int_alnlen >= eff.opt_mincols)
-          & ((eff.opt_leftjust == 0) | (tql + ttl == 0))
-          & ((eff.opt_rightjust == 0) | (tqr + ttr == 0))
-          & (matches + mism >= eff.opt_query_cov * qlens)
-          & (matches + mism >= eff.opt_target_cov
-             * tlens.astype(np.float64))
+          & (matches + mism >= qf * eff.opt_query_cov)
+          & (matches + mism >= tf * eff.opt_target_cov)
           & (ids <= 100.0 * eff.opt_maxid)
           & (mid_frac >= eff.opt_mid)
           & (mism + int_indels <= eff.opt_maxdiffs)
           & (ids >= 100.0 * eff.opt_id))
+    if eff.opt_leftjust:
+        ok &= tql + ttl == 0
+    if eff.opt_rightjust:
+        ok &= tqr + ttr == 0
     return ok
 
 
@@ -302,18 +308,17 @@ def _allpairs_generic(params, eff, db, ctx, align_progress, make_qi,
 
 def _allpairs_fast(params, eff, db, ctx, align_progress, make_qi,
                    build_hit, emit_query) -> None:
-    """Device stats pipeline: the whole triangle through K2m and K5, one
-    fetch, vectorized accept, realign only accepted/overflow pairs."""
+    """Device stats pipeline: the whole triangle through K2m and K5 and the
+    accept on the device, one fetch of the accepted and overflow pairs'
+    indices, realign only those pairs."""
     from .. import device as device_mod
-    from ..ops.allpairs_dev import AllPairsDevice
+    from ..ops.allpairs_dev import AllPairsDevice, fetch_rows
     seqcount = db.seqcount
     seqs = [db.getsequence(i) for i in range(seqcount)]
     with phase("upload"):
         dev = AllPairsDevice(ctx.scheme, seqs, device_mod.current())
-    lens = np.fromiter((db.getsequencelen(i) for i in range(seqcount)),
-                       dtype=np.int64, count=seqcount)
 
-    # the triangle in (q asc, t asc) order
+    # the triangle in (q asc, t asc) order, on the host and on the device
     qis = {}
     with phase("triangle"):
         if unaligned_gate_active(eff):
@@ -331,22 +336,27 @@ def _allpairs_fast(params, eff, db, ctx, align_progress, make_qi,
         else:
             qpos, tpos = np.triu_indices(seqcount, 1)
             align_progress.update(align_progress._counter + qpos.size)
+        qpos_d, tpos_d = (torch.from_numpy(a).to(dev.device)
+                          for a in (qpos, tpos))
 
-    overflow, stats = dev.run(qpos, tpos)
+    overflow, stats = dev.run(qpos_d, tpos_d)
 
-    # vectorized acceptance over the whole triangle
+    # the accept over the whole triangle, where the stats are
     with phase("accept"):
-        ok = _accept_mask(eff, stats, lens[qpos], lens[tpos]) & ~overflow
+        ok = accept_mask(eff, stats, dev.lens.index_select(0, qpos_d),
+                         dev.lens.index_select(0, tpos_d)) & ~overflow
+    ok_rows, over_rows = fetch_rows(ok, overflow)
     with phase("collect"):
         accepted = {}        # query_no -> list of target
-        qok = qpos[ok].tolist()
-        for q, t in zip(qok, tpos[ok].tolist()):
+        qok = qpos[ok_rows].tolist()
+        for q, t in zip(qok, tpos[ok_rows].tolist()):
             accepted.setdefault(q, []).append(t)
 
         # overflow pairs: exact scalar path decides (sentinel -> linmem)
-        slow = list(zip(qpos[overflow].tolist(), tpos[overflow].tolist()))
+        slow = list(zip(qpos[over_rows].tolist(), tpos[over_rows].tolist()))
         add("allpairs.accepted", len(qok))
         add("allpairs.overflow", len(slow))
+        add("allpairs.fetched", len(qok) + len(slow))
         slow_results = {}
         if slow:
             add("allpairs.realigned", len(slow))

@@ -5,10 +5,11 @@ src/commands/allpairs_global.cpp:340-520: the sequence codes go to the
 device once, the triangular pair schedule runs through it as index-pair
 batches, and each batch runs the row-scan forward with the match plane
 (K2m, ops/nw_rowscan.py) and then the stats walk (K5, csrc/nw_stats.cu) on
-the same stream.  Only 8 int32 of stats and an overflow flag per pair reach
-the host, in one copy at the end of the triangle; acceptance then runs
-vectorised on the host and only the accepted pairs are aligned again for
-their CIGARs (commands/allpairs.py).
+the same stream.  The stats stay on the device: the accept cascade runs
+there over the whole triangle (commands/allpairs.py accept_mask), and only
+the indices of the accepted and the overflowing pairs reach the host, in
+one copy after the card has finished (fetch_rows); only those pairs are
+aligned again, for their CIGARs or, overflowing, for their scores.
 
 The stats come out of the run-length walk itself: the forward records, per
 cell, the diagonal run length and the IUPAC match count within that exact
@@ -203,47 +204,49 @@ class AllPairsDevice:
                 rows(self.raw_all, qp), self.lens.index_select(0, qp),
                 rows(self.raw_all, tp), self.lens.index_select(0, tp))
 
-    def run(self, qpos: np.ndarray, tpos: np.ndarray
-            ) -> Tuple[np.ndarray, np.ndarray]:
-        """All pairs (qpos[k], tpos[k]) through K2m and K5, batch by batch;
-        nothing is fetched until the last batch is queued.  Returns the
-        host's overflow (P,) bool and stats (P, 8) int32."""
+    def run(self, qpos: torch.Tensor, tpos: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All pairs (qpos[k], tpos[k]), int64 sequence numbers on the
+        device, through K2m and K5, batch by batch.  Returns the device's
+        over (P,) bool and stats (P, 8) int32, queued and not waited for."""
         P = len(qpos)
-        if P == 0:
-            return np.zeros(0, dtype=bool), np.zeros((0, 8), dtype=np.int32)
         W = self.W
         dev = self.device
         stats = torch.empty((P, 8), dtype=torch.int32, device=dev)
         over = torch.empty(P, dtype=torch.bool, device=dev)
+        if P == 0:
+            return over, stats
         with phase("dispatch"):
             B = min(self.batch, P)
             add("allpairs.pairs", P)
             add("allpairs.batches", -(-P // B))
             dirs_buf = torch.empty(W * W * B, dtype=torch.uint16, device=dev)
             mr_buf = torch.empty(W * W * B, dtype=torch.uint8, device=dev)
-            qpos_d = torch.from_numpy(
-                np.ascontiguousarray(qpos, dtype=np.int64)).to(dev)
-            tpos_d = torch.from_numpy(
-                np.ascontiguousarray(tpos, dtype=np.int64)).to(dev)
             for lo in range(0, P, B):
                 hi = min(lo + B, P)
                 b = hi - lo
-                wire = self.batch_wire(qpos_d[lo:hi], tpos_d[lo:hi])
+                wire = self.batch_wire(qpos[lo:hi], tpos[lo:hi])
                 planes = (dirs_buf[:W * W * b].view(W, W, b),
                           mr_buf[:W * W * b].view(W, W, b))
                 _, over[lo:hi], dirs, mr = self.forward(*wire, out=planes)
                 stats[lo:hi] = stats_walk(dirs, mr, wire[3], wire[5])
-            # one copy of the stats and the flag together
-            packed = torch.cat((stats, over.to(torch.int32)[:, None]), dim=1)
-        with phase("stats_fetch"):
-            if packed.is_cuda:
-                host = torch.empty(packed.shape, dtype=packed.dtype,
-                                   pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                with phase("stats_wait"):
-                    event.synchronize()
-                packed = host
-            arr = packed.numpy()
-        return arr[:, 8] != 0, arr[:, :8]
+        return over, stats
+
+
+def fetch_rows(ok: torch.Tensor, over: torch.Tensor
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The rows of the triangle where ``ok`` holds and where ``over``
+    holds, each ascending, as host int64 arrays: one wait for the card to
+    finish the triangle and its accept, then one copy of these indices
+    alone (16 bytes a row)."""
+    with phase("stats_fetch"):
+        rows = torch.stack((ok, over))
+        if rows.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+            with phase("stats_wait"):
+                event.synchronize()
+        # (K, 2) [which, row], row-major: every ok row, then every over row
+        nz = torch.nonzero(rows).cpu().numpy()
+    which, idx = nz[:, 0], nz[:, 1]
+    return idx[which == 0], idx[which == 1]

@@ -28,11 +28,12 @@ ops/allpairs_dev.py), in job order:
   mask       dust_all / hardmask_all
   context    SearchContext.build
   upload     AllPairsDevice: the codes encoded and copied to the device
-  triangle   the pair schedule (qpos, tpos)
+  triangle   the pair schedule (qpos, tpos), and its copy to the device
   dispatch   K2m + K5 queued batch by batch (waits behind K2m)
-  stats_fetch the stats copied to the host; holds stats_wait, the wait
-             for the card to finish the triangle
-  accept     the vectorised accept mask over the triangle
+  accept     the accept cascade over the triangle queued on the device
+  stats_fetch the indices of the accepted and overflow pairs copied to
+             the host; holds stats_wait, the wait for the card to finish
+             the triangle and the accept
   collect    the accepted pairs by query, the overflow and realign lists;
              holds the overflow pairs' align
   align      SearchContext.align_pairs: the realign of the overflow and
@@ -44,6 +45,8 @@ ops/allpairs_dev.py), in job order:
   allpairs.batches    the batches they are cut into
   allpairs.overflow   pairs whose scores overflowed
   allpairs.accepted   pairs the stats accept
+  allpairs.fetched    pairs whose index crosses to the host (accepted +
+                      overflow)
   allpairs.realigned  pairs aligned again (overflow + accepted)
   allpairs.rows       hits written, once each whatever the output files
 
