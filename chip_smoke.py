@@ -1504,14 +1504,16 @@ class allpairs_counts:
     (AllPairsDevice.batch), the overflow pairs, the pairs the stats accept,
     the pairs whose index it fetches to the host (accepted and overflow)
     and the pairs it aligns again through SearchContext.align_pairs
-    (overflow and accepted): the program's own counters
+    (overflow and accepted), K2m's DP cells and the plane buffers' bytes:
+    the program's own counters
     (utils/phasetimer ``tally``), turned on for the block."""
 
     NAMES = {"pairs": "allpairs.pairs", "batches": "allpairs.batches",
              "overflow": "allpairs.overflow",
              "accepted": "allpairs.accepted",
              "fetched": "allpairs.fetched",
-             "realigned": "allpairs.realigned"}
+             "realigned": "allpairs.realigned",
+             "cells": "allpairs.cells", "plane_bytes": "allpairs.plane_bytes"}
 
     def __enter__(self):
         from vsearch_tpu_torch.utils import phasetimer
@@ -1532,7 +1534,8 @@ class allpairs_counts:
                 "overflow_pairs": self.overflow,
                 "accepted_by_stats": self.accepted,
                 "fetched_pairs": self.fetched,
-                "realigned_pairs": self.realigned}
+                "realigned_pairs": self.realigned,
+                "dp_cells": self.cells, "plane_bytes": self.plane_bytes}
 
 
 class walk_round_k2:
@@ -3041,6 +3044,12 @@ def phase_allpairs_full(gpu, ap_path):
         require_wire(launches, False, "allpairs_full")
         require(counts.pairs == n_pairs, "the pipeline saw %d pairs"
                 % counts.pairs)
+        # every pair is AP_LEN x AP_LEN cells, one plane buffer of the
+        # 4096-pair batch (3 bytes a cell)
+        require(counts.cells == n_pairs * AP_LEN * AP_LEN
+                and counts.plane_bytes == 3 * AP_LEN * AP_LEN * 4096,
+                "K2m counted %d cells and %d plane bytes"
+                % (counts.cells, counts.plane_bytes))
         lines = (WORK / ("%s.b6" % tag)).read_bytes().splitlines()
         require(len(lines) == counts.accepted,
                 "blast6 has %d lines for %d accepted pairs"

@@ -878,3 +878,48 @@ def test_accept_mask_and_fetch_cuda_match_cpu(cuda_device, iddef, n):
         assert w.size > 0 and (np.diff(w) > 0).all()
     assert np.array_equal(want_rows[0], np.flatnonzero(ok.numpy()))
     assert np.array_equal(want_rows[1], np.flatnonzero(over.numpy()))
+
+
+def test_allpairs_full_length_batch_matches_batches_of_32(cuda_device):
+    """Full-length 16S pairs (W = 1456) in one batch of 4096, as the card's
+    memory sizes it: the planes hold 1456 x 1456 x 4096 = 8.68e9 cells,
+    past 2**31, so K2m's and K5's plane offsets must not wrap.  The same
+    pairs in batches of 32, whose planes stay under 2**31, give the same
+    overflow flags and stats for every pair, and the first 32 match the
+    plain versions on the CPU."""
+    rng = np.random.default_rng(1456)
+    base = rng.integers(0, 4, 1480)
+    seqs = []
+    for k in range(92):
+        s = base.copy()
+        pos = rng.choice(s.size, size=int(rng.integers(0, 40)),
+                         replace=False)
+        s[pos] = rng.integers(0, 4, pos.size)
+        for _ in range(int(rng.integers(0, 4))):
+            at = int(rng.integers(0, s.size))
+            s = np.delete(s, np.arange(at, at + int(rng.integers(1, 4))))
+        seqs.append(bytes(np.frombuffer(b"ACGT", np.uint8)[
+            s[:1450 - (k % 7) * 8]]))
+    key = _default_key()
+    scheme = ScoreScheme(*key[:14], bool(key[14]))
+    dev = allpairs_dev.AllPairsDevice(scheme, seqs, cuda_device)
+    assert dev.W == 1456 and dev.batch == 4096
+    assert nw_rowscan.rowscan16(key, 1456, 1456)
+    q, t = np.triu_indices(len(seqs), 1)
+    qpos = torch.from_numpy(q[:4096]).to(cuda_device)
+    tpos = torch.from_numpy(t[:4096]).to(cuda_device)
+    assert 1456 * 1456 * len(qpos) > 2 ** 31
+    cuda_lib.reset_launches()
+    over, stats = (x.cpu() for x in dev.run(qpos, tpos))
+    assert cuda_lib.LAUNCHES["nw_rowscan_mr16"] == 1
+    dev.batch = 32
+    over32, stats32 = (x.cpu() for x in dev.run(qpos, tpos))
+    assert cuda_lib.LAUNCHES["nw_rowscan_mr16"] == 1 + 4096 // 32
+    assert not bool(over.any())
+    assert torch.equal(over, over32) and torch.equal(stats, stats32)
+    # related pairs: long matched runs, a few gaps
+    assert int(stats[:, 1].min()) > 1300 and int(stats[:, 2].max()) > 0
+    plain = allpairs_dev.AllPairsDevice(scheme, seqs, torch.device("cpu"))
+    over_p, stats_p = plain.run(qpos[:32].cpu(), tpos[:32].cpu())
+    assert torch.equal(over_p, over[:32]) and torch.equal(stats_p,
+                                                          stats[:32])

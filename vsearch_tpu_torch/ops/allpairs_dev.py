@@ -25,7 +25,7 @@ CUDA tensors launch the kernels; CPU tensors take their plain versions.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,12 +161,12 @@ class AllPairsDevice:
     """The device-resident code planes of one run, and the triangle's
     pair batches through K2m and K5.
 
-    A batch is PAIR_BATCH pairs, cut so that its direction and match planes
-    (3 bytes a cell, W * W cells a pair) stay under PLANE_BUDGET; it stays
-    a multiple of 32 (a warp of pairs) and at least 32.  The planes are
-    allocated once per run and reused by every batch (K2m and K5 run in
-    stream order); the tail batch launches at its own size.  Outputs do not
-    depend on the batch size."""
+    A batch is at most PAIR_BATCH pairs, as many as the plane budget holds
+    (batch_size): on a card half of what it can give when the run starts,
+    so that long sequences still fill the SMs, on the CPU PLANE_BUDGET.
+    The planes are allocated once per run and reused by every batch (K2m
+    and K5 run in stream order); the tail batch launches at its own size.
+    Outputs do not depend on the batch size."""
 
     PAIR_BATCH = 4096
     PLANE_BUDGET = 4 * 10 ** 9
@@ -190,9 +190,18 @@ class AllPairsDevice:
                            count=n)
         self.raw_all, self.qm_all, self.am_all, self.lens = (
             torch.from_numpy(a).to(self.device) for a in (codes, qm, am, lens))
-        self.batch = max(32, min(self.PAIR_BATCH,
-                                 self.PLANE_BUDGET // (3 * W * W)) // 32 * 32)
+        self.batch = self.batch_size(W, available_bytes(self.device))
         self.forward = build_forward(key, with_matches=True)
+
+    @classmethod
+    def batch_size(cls, W: int, available: Optional[int]) -> int:
+        """Pairs a batch of width W holds, where the card can give
+        ``available`` bytes (None on the CPU): its direction and match
+        planes (3 bytes a cell, W * W cells a pair) take at most half of
+        them, or PLANE_BUDGET on the CPU; a multiple of 32 (a warp of
+        pairs), at least 32."""
+        budget = cls.PLANE_BUDGET if available is None else available // 2
+        return max(32, min(cls.PAIR_BATCH, budget // (3 * W * W)) // 32 * 32)
 
     def batch_wire(self, qp: torch.Tensor, tp: torch.Tensor):
         """K2m's inputs (qmT, amT, rqT, qlen, t4T, tlen) for the pairs
@@ -220,8 +229,12 @@ class AllPairsDevice:
             B = min(self.batch, P)
             add("allpairs.pairs", P)
             add("allpairs.batches", -(-P // B))
-            dirs_buf = torch.empty(W * W * B, dtype=torch.uint16, device=dev)
-            mr_buf = torch.empty(W * W * B, dtype=torch.uint8, device=dev)
+            add("allpairs.cells", P * W * W)
+            with phase("planes"):
+                dirs_buf = torch.empty(W * W * B, dtype=torch.uint16,
+                                       device=dev)
+                mr_buf = torch.empty(W * W * B, dtype=torch.uint8, device=dev)
+            add("allpairs.plane_bytes", dirs_buf.nbytes + mr_buf.nbytes)
             for lo in range(0, P, B):
                 hi = min(lo + B, P)
                 b = hi - lo
@@ -231,6 +244,18 @@ class AllPairsDevice:
                 _, over[lo:hi], dirs, mr = self.forward(*wire, out=planes)
                 stats[lo:hi] = stats_walk(dirs, mr, wire[3], wire[5])
         return over, stats
+
+
+def available_bytes(device: torch.device) -> Optional[int]:
+    """The bytes the card can give now: its free memory and what the
+    caching allocator holds but has not handed out (so a second run in
+    one process counts the first run's cached planes as free); None off
+    a card."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
 
 
 def fetch_rows(ok: torch.Tensor, over: torch.Tensor

@@ -29,7 +29,8 @@ ops/allpairs_dev.py), in job order:
   context    SearchContext.build
   upload     AllPairsDevice: the codes encoded and copied to the device
   triangle   the pair schedule (qpos, tpos), and its copy to the device
-  dispatch   K2m + K5 queued batch by batch (waits behind K2m)
+  dispatch   K2m + K5 queued batch by batch (waits behind K2m); holds
+             planes, the allocation of the batches' plane buffers
   accept     the accept cascade over the triangle queued on the device
   stats_fetch the indices of the accepted and overflow pairs copied to
              the host; holds stats_wait, the wait for the card to finish
@@ -43,6 +44,9 @@ ops/allpairs_dev.py), in job order:
   close      the output files flushed and closed
   allpairs.pairs      pairs through K2m + K5 (AllPairsDevice.run)
   allpairs.batches    the batches they are cut into
+  allpairs.cells      the DP cells K2m computes, W * W a pair (W the
+                      run's padded width)
+  allpairs.plane_bytes  bytes of the plane buffers allocated for the runs
   allpairs.overflow   pairs whose scores overflowed
   allpairs.accepted   pairs the stats accept
   allpairs.fetched    pairs whose index crosses to the host (accepted +
@@ -57,6 +61,8 @@ Metrics of the benchmark that read them (benchmark/metrics/):
   realign_us_per_pair.allpairs   self_acc align / allpairs.realigned
   emit_us_per_row.allpairs       self_acc emit / allpairs.rows
   untimed_ms_per_mpair.allpairs  self_acc cli, a million pairs
+  k2m_ps_per_cell.allpairs_fl16s the device time of the nw_rowscan
+                                 kernels / allpairs.cells
   walk_ms_per_kread.search, front_ms_per_kread.search  acc of the search
                                  phases below
 
