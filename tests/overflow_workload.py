@@ -72,18 +72,20 @@ def write_overflow_workload(d, families=3, db_n=520, seed=101):
 
 def count_overflow():
     """Patches the port to count the SHRT_MAX sentinels (overflowing
-    pairs) among BatchAligner.align_pairs' results and the pairs the
-    allpairs pipeline (AllPairsDevice.run) flags as overflowing.  Returns
-    (counts, undo): a dict the patched calls add to, and the function that
-    restores the originals."""
+    pairs) among the batched aligner's results (BatchAligner.
+    align_pairs_end, which align_pairs and the allpairs realign's second
+    half both end in) and the pairs the allpairs pipeline
+    (AllPairsDevice.run) flags as overflowing.  Returns (counts, undo): a
+    dict the patched calls add to, and the function that restores the
+    originals."""
     from vsearch_tpu_torch.ops.allpairs_dev import AllPairsDevice
     from vsearch_tpu_torch.ops.nw import SHRT_MAX
     from vsearch_tpu_torch.ops.nw_batch import BatchAligner
     seen = {"aligner_sentinels": 0, "allpairs_overflow": 0}
-    align, run = BatchAligner.align_pairs, AllPairsDevice.run
+    align, run = BatchAligner.align_pairs_end, AllPairsDevice.run
 
-    def counted_align(self, qseqs, tseqs):
-        out = align(self, qseqs, tseqs)
+    def counted_align(self, handle):
+        out = align(self, handle)
         seen["aligner_sentinels"] += sum(r.score == SHRT_MAX for r in out)
         return out
 
@@ -93,7 +95,8 @@ def count_overflow():
         return over, stats
 
     def undo():
-        BatchAligner.align_pairs, AllPairsDevice.run = align, run
+        BatchAligner.align_pairs_end, AllPairsDevice.run = align, run
 
-    BatchAligner.align_pairs, AllPairsDevice.run = counted_align, counted_run
+    BatchAligner.align_pairs_end, AllPairsDevice.run = (counted_align,
+                                                        counted_run)
     return seen, undo

@@ -12,6 +12,7 @@ off the TPU it takes its generic path and aligns every pair.  Every
 comparison is exact, and outputs must be byte-equal.
 """
 
+import json
 import random
 import zlib
 
@@ -210,6 +211,17 @@ PORT_CASES = CASES + [
     ("minsl_gate", ["--id", "0.4", "--minsl", "0.8", "--blast6out",
                     "{o}.b6", "--uc", "{o}.uc"]),
 ]
+# the triangle in chunks of 2 batches of 96 (CHUNKS2): 6 chunks, with
+# queries straddling their boundaries
+PORT_CASES += [
+    ("basic_chunks", ["--id", "0.5", "--blast6out", "{o}.b6", "--uc",
+                      "{o}.uc", "--output_no_hits", "--matched", "{o}.m",
+                      "--notmatched", "{o}.nm"]),
+    # overflow pairs in several chunks
+    ("match_overflow_chunks", dict(PORT_CASES)["match_overflow"]),
+    # a filtered triangle, with queries that have no pairs
+    ("minsl_gate_chunks", dict(PORT_CASES)["minsl_gate"]),
+]
 # the port's process computes on one CPU thread: the suite runs its files
 # in parallel workers, where torch's intra-op threads would oversubscribe
 # the cores
@@ -217,6 +229,20 @@ ONE_THREAD = "import torch\ntorch.set_num_threads(1)\n"
 # the same workload in batches of 96 pairs (12 batches and a tail of 24)
 BATCH96 = ("from vsearch_tpu_torch.ops.allpairs_dev import AllPairsDevice\n"
            "AllPairsDevice.PAIR_BATCH = 96\n")
+# chunks of 2 batches, and the program's counters written to tally.json
+CHUNKS2 = BATCH96 + (
+    "AllPairsDevice.CHUNK_BATCHES = 2\n"
+    "import atexit, json\n"
+    "from vsearch_tpu_torch.utils import phasetimer\n"
+    "phasetimer.ENABLED = True\n"
+    "atexit.register(lambda: open('tally.json', 'w').write(\n"
+    "    json.dumps(dict(phasetimer.tally))))\n")
+
+
+def _setup(name: str) -> str:
+    if name.endswith("_chunks"):
+        return ONE_THREAD + CHUNKS2
+    return ONE_THREAD + (BATCH96 if name == "basic_batch96" else "")
 
 
 @pytest.mark.parametrize("name,opts", PORT_CASES,
@@ -229,8 +255,7 @@ def test_allpairs_matches_jax(pairs_fasta, tmp_path, name,  # noqa: F811
     base = ["--allpairs_global", str(pairs_fasta), "--minseqlength", "1"]
     run_ours(base + expand("jax"), tmp_path)
     rep = run_port(base + expand("port") + ["--threads", "1", "--quiet"],
-                   tmp_path, setup=ONE_THREAD + (
-                       BATCH96 if name == "basic_batch96" else ""))
+                   tmp_path, setup=_setup(name))
     assert rep["rc"] == 0
     outs = [x for x in opts if x.startswith("{o}")]
     assert outs
@@ -242,10 +267,25 @@ def test_allpairs_matches_jax(pairs_fasta, tmp_path, name,  # noqa: F811
             jax_b = b"\n".join(jax_b.split(b"\n")[2:])
             port_b = b"\n".join(port_b.split(b"\n")[2:])
         assert port_b == jax_b, "%s: %s differs" % (name, tpl)
-    if name == "match_overflow":
-        raws = [int(ln.split(b"\t")[3])
+    if name.startswith("match_overflow"):
+        rows = [ln.split(b"\t")
                 for ln in (tmp_path / "port.user").read_bytes().splitlines()]
+        raws = [int(r[3]) for r in rows]
         assert max(raws) > 32767
+        if name.endswith("_chunks"):
+            # the overflowing pairs written lie in several chunks
+            n = 48
+            chunks = set()
+            for r, raw in zip(rows, raws):
+                q, t = (int(x.split(b";")[0][1:]) for x in r[:2])
+                if raw > 32767:
+                    chunks.add((q * (n - 1) - q * (q - 1) // 2 + t - q - 1)
+                               // (2 * 96))
+            assert len(chunks) > 2, chunks
+    if name.endswith("_chunks"):
+        tally = json.loads((tmp_path / "tally.json").read_text())
+        assert tally["allpairs.chunks"] == -(-tally["allpairs.batches"]
+                                             // 2) > 1, tally
     calls = rep["plain_calls"]
     if name == "acceptall":
         # the generic path: every pair through the batched aligner
@@ -255,8 +295,7 @@ def test_allpairs_matches_jax(pairs_fasta, tmp_path, name,  # noqa: F811
         # and with no unaligned gate the whole triangle of 1128 pairs
         assert calls["nw_rowscan_mr"] == calls["nw_stats"] > 0, calls
         if name.startswith("basic"):
-            assert calls["nw_rowscan_mr"] == (12 if name == "basic_batch96"
-                                              else 1)
+            assert calls["nw_rowscan_mr"] == (1 if name == "basic" else 12)
     assert not any(rep["launches"].values())
     loaded = rep["modules"]
     assert "vsearch_tpu_torch.commands.allpairs" in loaded

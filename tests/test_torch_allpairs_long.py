@@ -8,7 +8,8 @@ Then a set of related 720 nt sequences through the port's fast path, in
 batches of 32 pairs: its blast6 and userout rows byte-equal to the JAX
 package's and, for every pair of the triangle, to the benchmark's plain
 reference (benchmark/reference/allpairs.py).  Last, K2m's counters: the
-cells as W * W a pair and the plane buffers' bytes.
+cells as W * W a pair and the plane buffers' bytes; and the triangle in
+chunks of batches, counted, with outputs byte-equal to one chunk's.
 """
 
 import numpy as np
@@ -142,13 +143,13 @@ def test_cells_and_plane_bytes_counted(timer, monkeypatch, lengths, copies,
     rng = np.random.default_rng(len(lengths))
     seqs = [bytes(seqgen.ALPHABET[rng.integers(0, 4, k)]) for k in lengths]
     seqs = seqs * copies
-    dev = AllPairsDevice(_scheme(), seqs, torch.device("cpu"))
-    W = dev.W
-    assert W == {101: 104, 700: 704}[max(lengths)]
     q, t = np.triu_indices(len(seqs), 1)
     # a triangle of several batches, and one of less than one
     assert q.size > 2 * batch
     for P in (q.size, 5):
+        dev = AllPairsDevice(_scheme(), seqs, torch.device("cpu"))
+        W = dev.W
+        assert W == {101: 104, 700: 704}[max(lengths)]
         timer.reset()
         over, stats = dev.run(torch.from_numpy(q[:P]),
                               torch.from_numpy(t[:P]))
@@ -160,3 +161,62 @@ def test_cells_and_plane_bytes_counted(timer, monkeypatch, lengths, copies,
         assert timer.tally["allpairs.batches"] == -(-P // B)
         # the planes' allocation, inside dispatch
         assert 0 < timer.acc["planes"] <= timer.acc["dispatch"]
+        # a later run of the same set (the next chunk) reuses the planes
+        dev.run(torch.from_numpy(q[:P]), torch.from_numpy(t[:P]))
+        assert timer.tally["allpairs.plane_bytes"] == 3 * W * W * B
+        assert timer.tally["allpairs.cells"] == 2 * P * W * W
+
+
+# 40 related 160 nt sequences (4 x 2 x 5 leaves, pairs of a clade about
+# 96-99 %) and the --id that cuts between them: 780 pairs in 25 batches
+CHUNKED = dict(branching=[4, 2, 5], subs=[30, 4, 2], indels=[1, 1, 0],
+               length=160)
+
+
+@pytest.mark.parametrize("chunk_batches", [3, 7])
+def test_chunks_counted_and_rows_unchanged(timer, tmp_path, monkeypatch,
+                                           chunk_batches):
+    """The triangle in chunks of chunk_batches batches of 32: the counter
+    allpairs.chunks reads ceil(batches / chunk_batches), and every output
+    file is byte-equal to the run of the whole triangle as one chunk
+    (chunks 1), with --uc, --output_no_hits, --matched and --notmatched,
+    queries written in the chunk that completes them."""
+    from vsearch_tpu_torch import cli
+    codes, _ = seqgen.taxon_tree(seqgen.rng_for(780, 2, 0),
+                                 CHUNKED["branching"], CHUNKED["subs"],
+                                 CHUNKED["indels"], CHUNKED["length"])
+    fa = tmp_path / "set.fa"
+    seqgen.write_fasta(fa, "s", codes)
+    monkeypatch.setattr(AllPairsDevice, "PAIR_BATCH", 32)
+    files = ("b6", "uc", "m", "nm")
+
+    def run(tag, chunk):
+        monkeypatch.setattr(AllPairsDevice, "CHUNK_BATCHES", chunk)
+        timer.reset()
+        argv = ["--allpairs_global", str(fa), "--id", "0.97",
+                "--output_no_hits", "--threads", "1", "--quiet"]
+        for ext, opt in zip(files, ("--blast6out", "--uc", "--matched",
+                                    "--notmatched")):
+            argv += [opt, str(tmp_path / ("%s.%s" % (tag, ext)))]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            assert cli.main(argv, device="cpu") == 0
+        finally:
+            torch.set_num_threads(threads)
+        return dict(timer.tally)
+
+    one = run("one", 64)
+    assert one["allpairs.batches"] == -(-780 // 32) == 25
+    assert one["allpairs.chunks"] == 1
+    got = run("chunked", chunk_batches)
+    assert got["allpairs.chunks"] == -(-25 // chunk_batches) > 1
+    for name in ("allpairs.pairs", "allpairs.batches", "allpairs.cells",
+                 "allpairs.accepted", "allpairs.rows"):
+        assert got[name] == one[name], name
+    # some pairs reported and some queries not matched
+    assert 0 < one["allpairs.rows"] < 780
+    assert (tmp_path / "one.nm").stat().st_size > 0
+    for ext in files:
+        assert ((tmp_path / ("chunked." + ext)).read_bytes()
+                == (tmp_path / ("one." + ext)).read_bytes()), ext

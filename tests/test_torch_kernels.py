@@ -10,6 +10,7 @@ chip_smoke.py makes the same comparisons at the main path's shapes.  Every
 comparison is exact: the work is integer counts and integer DP.
 """
 
+import pathlib
 import random
 
 import numpy as np
@@ -853,9 +854,10 @@ def _left_ends_run(dirs, ops, qlen, tlen) -> bool:
 def test_accept_mask_and_fetch_cuda_match_cpu(cuda_device, iddef, n):
     """The allpairs accept cascade on the card gives the CPU's mask, every
     term on and each term alone, at the thresholds and zero denominators
-    of accept_rows and over the cell's whole triangle; fetch_rows on the
-    card gives the CPU's accepted and overflow indices, in the same
-    ascending order."""
+    of accept_rows and over the cell's whole triangle; queue_rows and
+    take_rows on the card (two bytes a pair copied to pinned memory) give
+    the CPU's accepted and overflow indices, in the same ascending
+    order."""
     from vsearch_tpu_torch.commands.allpairs import accept_mask
     stats, qlen, tlen = accept_rows(3100 + iddef, n)
     cpu = [torch.from_numpy(a) for a in (stats, qlen, tlen)]
@@ -870,14 +872,83 @@ def test_accept_mask_and_fetch_cuda_match_cpu(cuda_device, iddef, n):
     over = torch.from_numpy(np.random.default_rng(iddef).random(len(stats))
                             < 0.005)
     ok = want & ~over
-    want_rows = allpairs_dev.fetch_rows(ok, over)
-    got_rows = allpairs_dev.fetch_rows(ok.to(cuda_device),
-                                       over.to(cuda_device))
+    want_rows = allpairs_dev.take_rows(allpairs_dev.queue_rows(ok, over))
+    handle = allpairs_dev.queue_rows(ok.to(cuda_device),
+                                     over.to(cuda_device))
+    host, event, lo = handle
+    assert host.is_pinned() and host.dtype == torch.bool and lo == 0
+    assert host.numel() == 2 * len(ok) and event is not None
+    got_rows = allpairs_dev.take_rows(handle)
     for w, g in zip(want_rows, got_rows):
         assert g.dtype == np.int64 and np.array_equal(g, w)
         assert w.size > 0 and (np.diff(w) > 0).all()
     assert np.array_equal(want_rows[0], np.flatnonzero(ok.numpy()))
     assert np.array_equal(want_rows[1], np.flatnonzero(over.numpy()))
+
+
+def test_allpairs_chunks_cuda_match_cpu(cuda_device, tmp_path, monkeypatch):
+    """A triangle of 400 nt sequences in 8 chunks of 2 batches of 128 on
+    the card: every output byte-equal to the CPU's run, and each chunk's
+    realign on the device route (K2), queued on the triangle's stream."""
+    from benchmark.gen import seqgen
+    from vsearch_tpu_torch import cli
+    from vsearch_tpu_torch.utils import phasetimer
+    AllPairsDevice = allpairs_dev.AllPairsDevice
+    monkeypatch.setattr(AllPairsDevice, "PAIR_BATCH", 128)
+    monkeypatch.setattr(AllPairsDevice, "CHUNK_BATCHES", 2)
+    # the realign's routing as a fresh process starts it
+    monkeypatch.setattr(nw_batch.BatchAligner, "_dev_overhead_ema", 8e-3)
+    monkeypatch.setattr(nw_batch.BatchAligner, "_native_rate_ema", 1.0e9)
+    monkeypatch.setattr(phasetimer, "ENABLED", True)
+    # 56 related sequences (7 clades of 8, every pair within 90 %) and 8
+    # random ones, in a random order: about three pairs in four accepted
+    rng = seqgen.rng_for(2016, 3, 0)
+    related, _ = seqgen.taxon_tree(rng, [7, 8], [4, 2], [1, 0], 400)
+    codes = np.concatenate([related, seqgen.uniform(rng, 8, 400)])
+    codes = codes[rng.permutation(len(codes))]
+    fa = tmp_path / "set.fa"
+    seqgen.write_fasta(fa, "s", codes)
+    calls = []
+    begin = nw_batch.BatchAligner.align_pairs_begin
+
+    def counted(self, qseqs, tseqs):
+        before = cuda_lib.LAUNCHES["nw_rowscan"]
+        out = begin(self, qseqs, tseqs)
+        calls.append((len(qseqs), cuda_lib.LAUNCHES["nw_rowscan"] - before,
+                      torch.cuda.current_stream()
+                      == torch.cuda.default_stream()))
+        return out
+
+    monkeypatch.setattr(nw_batch.BatchAligner, "align_pairs_begin", counted)
+    outs = {}
+    for run in ("cuda", "cpu"):
+        cuda_lib.reset_launches()
+        phasetimer.reset()
+        calls.clear()
+        files = [str(tmp_path / ("%s.%s" % (run, ext)))
+                 for ext in ("b6", "uc", "user")]
+        assert cli.main(["--allpairs_global", str(fa), "--id", "0.9",
+                         "--blast6out", files[0], "--uc", files[1],
+                         "--userout", files[2], "--userfields",
+                         "query+target+id+raw+caln", "--threads", "1",
+                         "--quiet"], device=run) == 0
+        outs[run] = [pathlib.Path(f).read_bytes() for f in files]
+        if run == "cpu":
+            continue
+        tally = dict(phasetimer.tally)
+        assert tally["allpairs.batches"] == 16, tally
+        assert tally["allpairs.chunks"] == 8, tally
+        assert cuda_lib.LAUNCHES["nw_rowscan_mr16"] == 16
+        assert cuda_lib.LAUNCHES["nw_stats"] == 16
+        assert not any(cuda_lib.PLAIN_CALLS.values())
+        # a realign a chunk, each on the card, on the triangle's stream
+        assert len(calls) == 8, calls
+        assert all(n > 0 and k2 > 0 and main
+                   for n, k2, main in calls), calls
+        assert 1000 < tally["allpairs.accepted"] < 2016 - 8 * 56
+    for want, got in zip(outs["cpu"], outs["cuda"]):
+        assert got == want
+    assert outs["cuda"][0].count(b"\n") > 1000
 
 
 def test_allpairs_full_length_batch_matches_batches_of_32(cuda_device):

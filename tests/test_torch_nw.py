@@ -275,3 +275,28 @@ def test_align_pairs_matches_oracle(monkeypatch, one_thread, case):
         assert rl[wrap] == m[wrap] == 1
         assert rl[-1] == m[-1] == n - wrap
 
+
+
+@pytest.mark.parametrize("loads", [0, 1], ids=["warm", "library_loaded"])
+def test_router_learns_nothing_from_a_library_load(monkeypatch, one_thread,
+                                                   loads):
+    """The device path's overhead sample moves the router's estimate,
+    unless the call built or loaded a kernel library: then it measured
+    that, and the estimate stays."""
+    p = Parameters()
+    p.apply_defaults_fixups()
+    scheme = ScoreScheme(*_key(jax_nw.ScoreScheme.from_params(p)))
+    ba = nw_batch.BatchAligner(scheme, torch.device("cpu"))
+    monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
+                        lambda self: 0)
+    monkeypatch.setattr(nw_batch.BatchAligner, "_dev_overhead_ema", 8e-3)
+    # the libraries loaded so far: ``loads`` more at each look
+    looks = []
+    monkeypatch.setattr(cuda_lib, "loaded",
+                        lambda: looks.append(1) or len(looks) * loads)
+    pairs = _pairs_like_test_nw("seed1")
+    cuda_lib.reset_launches()
+    ba.align_pairs([q for q, _ in pairs], [t for _, t in pairs])
+    assert cuda_lib.PLAIN_CALLS["nw_rowscan"] == 1
+    moved = nw_batch.BatchAligner._dev_overhead_ema != 8e-3
+    assert moved == (not loads)

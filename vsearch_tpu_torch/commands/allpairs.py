@@ -8,10 +8,12 @@ Device stats pipeline (ops/allpairs_dev.py): the sequence codes upload
 once, the triangular schedule runs as index-pair batches through the
 forward with the match plane (K2m) and the stats walk (K5), the
 accept/reject cascade runs over the per-pair statistics where they are
-(accept_mask), and only the indices of the accepted and the overflowing
-pairs come back, in one copy; only those pairs are aligned again, for
-their CIGARs.  It runs on the port's device, the CUDA card or, asked for,
-the CPU (the kernels' plain versions).  The generic
+(accept_mask), and only a byte a pair of its verdict and of the overflow
+flag comes back; only the accepted and the overflowing pairs are aligned
+again, for their CIGARs.  The triangle runs in chunks of batches: a
+chunk's pairs are aligned again and the queries it completes written
+while the card runs the next chunks.  It runs on the port's device, the
+CUDA card or, asked for, the CPU (the kernels' plain versions).  The generic
 path, which aligns every pair through the batched aligner, takes
 --acceptall (every pair is emitted, so per-pair CIGARs are needed anyway),
 infinite gap penalties, fewer than 16 sequences and lengths outside
@@ -20,7 +22,9 @@ infinite gap penalties, fewer than 16 sequences and lengths outside
 
 from __future__ import annotations
 
+from collections import deque
 from contextlib import ExitStack
+from functools import partial
 from typing import List, Optional
 
 import numpy as np
@@ -308,11 +312,13 @@ def _allpairs_generic(params, eff, db, ctx, align_progress, make_qi,
 
 def _allpairs_fast(params, eff, db, ctx, align_progress, make_qi,
                    build_hit, emit_query) -> None:
-    """Device stats pipeline: the whole triangle through K2m and K5 and the
-    accept on the device, one fetch of the accepted and overflow pairs'
-    indices, realign only those pairs."""
+    """Device stats pipeline: the triangle through K2m, K5 and the accept
+    on the device in chunks of batches (AllPairsDevice.chunks), two
+    queued ahead of the one taken; as each chunk's accepted and overflow
+    pairs' indices arrive, those pairs are realigned and the queries the
+    chunk completes are written, while the card runs the next chunks."""
     from .. import device as device_mod
-    from ..ops.allpairs_dev import AllPairsDevice, fetch_rows
+    from ..ops.allpairs_dev import AllPairsDevice, take_rows
     seqcount = db.seqcount
     seqs = [db.getsequence(i) for i in range(seqcount)]
     with phase("upload"):
@@ -339,49 +345,71 @@ def _allpairs_fast(params, eff, db, ctx, align_progress, make_qi,
         qpos_d, tpos_d = (torch.from_numpy(a).to(dev.device)
                           for a in (qpos, tpos))
 
-    overflow, stats = dev.run(qpos_d, tpos_d)
+    accepted = {}        # query_no -> targets, until the query is written
+    results_map = {}     # (query_no, target) -> its realign
+    written = 0          # the queries before it are written
 
-    # the accept over the whole triangle, where the stats are
-    with phase("accept"):
-        ok = accept_mask(eff, stats, dev.lens.index_select(0, qpos_d),
-                         dev.lens.index_select(0, tpos_d)) & ~overflow
-    ok_rows, over_rows = fetch_rows(ok, overflow)
-    with phase("collect"):
-        accepted = {}        # query_no -> list of target
-        qok = qpos[ok_rows].tolist()
-        for q, t in zip(qok, tpos[ok_rows].tolist()):
-            accepted.setdefault(q, []).append(t)
+    def emit_until(upto: int) -> None:
+        nonlocal written
+        with phase("emit"):
+            for q in range(written, upto):
+                qi = qis.pop(q, None) or make_qi(q)
+                finalhits = []
+                for t in accepted.pop(q, ()):
+                    hit = build_hit(qi, t, results_map.pop((q, t)))
+                    if hit is not None:
+                        finalhits.append(hit)
+                finalhits.sort(key=lambda h: (-h.id, h.target))
+                emit_query(qi, finalhits)
+        written = upto
 
-        # overflow pairs: exact scalar path decides (sentinel -> linmem)
-        slow = list(zip(qpos[over_rows].tolist(), tpos[over_rows].tolist()))
-        add("allpairs.accepted", len(qok))
-        add("allpairs.overflow", len(slow))
-        add("allpairs.fetched", len(qok) + len(slow))
-        slow_results = {}
-        if slow:
-            add("allpairs.realigned", len(slow))
-            res = ctx.align_pairs([(seqs[q], t) for q, t in slow])
+    def finish(hi, slow, pending, realign) -> None:
+        """A chunk's realign taken: its overflow pairs decided by the
+        exact scalar path (sentinel -> linmem), and the queries whose
+        pairs all lie in the chunks up to it written (those before the
+        next chunk's first query, or all of them after the last)."""
+        res = ctx.align_pairs_end(realign) if realign else []
+        with phase("collect"):
             for (q, t), r in zip(slow, res):
                 qi = qis.setdefault(q, make_qi(q))
                 if build_hit(qi, t, r) is not None:
                     accepted.setdefault(q, []).append(t)
-                    slow_results[(q, t)] = r
+                    results_map[(q, t)] = r
+            results_map.update(zip(pending, res[len(slow):]))
+        emit_until(int(qpos[hi]) if hi < qpos.size else seqcount)
 
-        # realign accepted pairs for CIGARs (rare), then emit in query order
-        pending = [(q, t) for q in sorted(accepted) for t in accepted[q]
-                   if (q, t) not in slow_results]
-    results_map = dict(slow_results)
-    if pending:
-        add("allpairs.realigned", len(pending))
-        res = ctx.align_pairs([(seqs[q], t) for q, t in pending])
-        results_map.update(zip(pending, res))
-    with phase("emit"):
-        for q in range(seqcount):
-            qi = qis.get(q) or make_qi(q)
-            finalhits = []
-            for t in accepted.get(q, ()):
-                hit = build_hit(qi, t, results_map[(q, t)])
-                if hit is not None:
-                    finalhits.append(hit)
-            finalhits.sort(key=lambda h: (-h.id, h.target))
-            emit_query(qi, finalhits)
+    # Chunk k's pairs are realigned on the card's stream behind chunk
+    # k + 1, ahead of chunk k + 2, so K2 and K3 run between K2m launches
+    # at the card's full width, and their fetch, after chunk k + 2 is
+    # queued, waits for them alone; its host work (the overflow pairs'
+    # decision, the writers) then runs while the card runs chunk k + 2.
+    bounds = dev.chunks(qpos.size)
+    accept = partial(accept_mask, eff)
+    ahead = deque(dev.queue_chunk(qpos_d, tpos_d, lo, hi, accept)
+                  for lo, hi in bounds[:2])
+    taken = None
+    for k, (_, hi) in enumerate(bounds):
+        ok_rows, over_rows = take_rows(ahead.popleft())
+        with phase("collect"):
+            pending = list(zip(qpos[ok_rows].tolist(),
+                               tpos[ok_rows].tolist()))
+            for q, t in pending:
+                accepted.setdefault(q, []).append(t)
+            slow = list(zip(qpos[over_rows].tolist(),
+                            tpos[over_rows].tolist()))
+            add("allpairs.accepted", len(pending))
+            add("allpairs.overflow", len(slow))
+            add("allpairs.fetched", len(pending) + len(slow))
+            add("allpairs.realigned", len(slow) + len(pending))
+        realign = (ctx.align_pairs_begin([(seqs[q], t)
+                                          for q, t in slow + pending])
+                   if slow or pending else None)
+        if k + 2 < len(bounds):
+            ahead.append(dev.queue_chunk(qpos_d, tpos_d, *bounds[k + 2],
+                                         accept))
+        if taken is not None:
+            finish(*taken)
+        taken = hi, slow, pending, realign
+    if taken is not None:
+        finish(*taken)
+    emit_until(seqcount)

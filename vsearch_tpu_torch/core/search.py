@@ -176,10 +176,38 @@ class SearchContext:
         """Align (qseq, target_seqno) pairs with search16 semantics +
         linear-memory fallback for sentinel scores."""
         with phase("align"):
-            return self._align_pairs_timed(pairs)
+            results, pending = self._host_aligned(pairs)
+            if pending:
+                batch = self.aligner.align_pairs(
+                    [pairs[i][0] for i in pending],
+                    [self.db.getsequence(pairs[i][1]) for i in pending])
+                for i, res in zip(pending, batch):
+                    results[i] = res
+            return self._linmem_fallback(pairs, results)
 
-    def _align_pairs_timed(self, pairs: Sequence[Tuple[bytes, int]]
-                           ) -> List[AlignmentResult]:
+    def align_pairs_begin(self, pairs: Sequence[Tuple[bytes, int]]):
+        """align_pairs in two halves: this one aligns on the host the
+        pairs the batched aligner does not take and queues the others
+        (BatchAligner.align_pairs_begin: on the device, not waited for);
+        align_pairs_end(handle) gives the results."""
+        with phase("align"):
+            results, pending = self._host_aligned(pairs)
+            return pairs, results, pending, self.aligner.align_pairs_begin(
+                [pairs[i][0] for i in pending],
+                [self.db.getsequence(pairs[i][1]) for i in pending])
+
+    def align_pairs_end(self, handle) -> List[AlignmentResult]:
+        """The results of align_pairs_begin's handle, in pair order."""
+        pairs, results, pending, batch = handle
+        with phase("align"):
+            for i, res in zip(pending, self.aligner.align_pairs_end(batch)):
+                results[i] = res
+            return self._linmem_fallback(pairs, results)
+
+    def _host_aligned(self, pairs: Sequence[Tuple[bytes, int]]):
+        """(results, pending): the pairs the batched aligner cannot take
+        aligned on the host, None for the others, whose indices pending
+        lists."""
         results: List[Optional[AlignmentResult]] = [None] * len(pairs)
         pending: List[int] = []
         for idx, (qseq, t) in enumerate(pairs):
@@ -190,14 +218,13 @@ class SearchContext:
                 results[idx] = align_pair_host(self.scheme, qseq, tseq)
             else:
                 pending.append(idx)
-        if pending:
-            batch = self.aligner.align_pairs(
-                [pairs[i][0] for i in pending],
-                [self.db.getsequence(pairs[i][1]) for i in pending])
-            for i, res in zip(pending, batch):
-                results[i] = res
-        # linear-memory fallback for sentinel scores
-        # (reference: align_delayed, searchcore.cpp:806-832)
+        return results, pending
+
+    def _linmem_fallback(self, pairs: Sequence[Tuple[bytes, int]],
+                         results: List[AlignmentResult]
+                         ) -> List[AlignmentResult]:
+        """Sentinel scores aligned again in linear memory (reference:
+        align_delayed, searchcore.cpp:806-832)."""
         for i, res in enumerate(results):
             if res.score == SHRT_MAX:
                 from ..ops.linmem import linmem_align

@@ -6,10 +6,13 @@ device once, the triangular pair schedule runs through it as index-pair
 batches, and each batch runs the row-scan forward with the match plane
 (K2m, ops/nw_rowscan.py) and then the stats walk (K5, csrc/nw_stats.cu) on
 the same stream.  The stats stay on the device: the accept cascade runs
-there over the whole triangle (commands/allpairs.py accept_mask), and only
-the indices of the accepted and the overflowing pairs reach the host, in
-one copy after the card has finished (fetch_rows); only those pairs are
-aligned again, for their CIGARs or, overflowing, for their scores.
+there (commands/allpairs.py accept_mask), and only a byte a pair of its
+verdict and of the overflow flag reaches the host (queue_rows, take_rows);
+only the accepted and the overflowing pairs are aligned again, for their
+CIGARs or, overflowing, for their scores.  The triangle goes through in
+chunks of batches (AllPairsDevice.chunks, queue_chunk), queued ahead of
+the one the host works on (commands/allpairs.py), so that the host's
+realign and writers run while the card runs K2m.
 
 The stats come out of the run-length walk itself: the forward records, per
 cell, the diagonal run length and the IUPAC match count within that exact
@@ -25,7 +28,7 @@ CUDA tensors launch the kernels; CPU tensors take their plain versions.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -164,12 +167,24 @@ class AllPairsDevice:
     A batch is at most PAIR_BATCH pairs, as many as the plane budget holds
     (batch_size): on a card half of what it can give when the run starts,
     so that long sequences still fill the SMs, on the CPU PLANE_BUDGET.
-    The planes are allocated once per run and reused by every batch (K2m
-    and K5 run in stream order); the tail batch launches at its own size.
-    Outputs do not depend on the batch size."""
+    The planes are allocated at the run's first batch and reused by every
+    later one (K2m and K5 run in stream order); the tail batch launches at
+    its own size.  Outputs do not depend on the batch size."""
 
     PAIR_BATCH = 4096
     PLANE_BUDGET = 4 * 10 ** 9
+    # K2m batches a chunk of the triangle (chunks).  A chunk costs the
+    # host about 6 ms besides its pairs' realign and writers (its launches,
+    # its accept, its realign call) and the card one realign launch,
+    # whose time is set by the width, not the pairs (about 1 ms at 400 nt,
+    # 10 ms at 1450 nt); the last chunk's host work runs with the card
+    # idle.  At 4 launches a batch (the wire gathered once a chunk) and 70
+    # or so of the chunk's own, two chunks of 32 batches in flight hold
+    # about 400 launches, well inside the card's launch queue.  On one
+    # H100 host, 32 ran 400 nt jobs (16 chunks of 43 ms of K2m) 6-7 %
+    # faster than 16 and 1450 nt jobs (4 chunks) 2.6 % slower.  A
+    # triangle of at most one chunk runs as one.
+    CHUNK_BATCHES = 32
 
     def __init__(self, scheme, seqs: Sequence[bytes],
                  device: torch.device) -> None:
@@ -192,6 +207,7 @@ class AllPairsDevice:
             torch.from_numpy(a).to(self.device) for a in (codes, qm, am, lens))
         self.batch = self.batch_size(W, available_bytes(self.device))
         self.forward = build_forward(key, with_matches=True)
+        self._planes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @classmethod
     def batch_size(cls, W: int, available: Optional[int]) -> int:
@@ -207,11 +223,38 @@ class AllPairsDevice:
         """K2m's inputs (qmT, amT, rqT, qlen, t4T, tlen) for the pairs
         (qp[k], tp[k]), int64 sequence numbers on the device: the rows
         gathered and transposed to the (W, B) wire on the device."""
+        return tuple(x[0] for x in self.batches_wire(qp, tp, len(qp)))
+
+    def batches_wire(self, qp: torch.Tensor, tp: torch.Tensor, B: int):
+        """batch_wire of len(qp) // B batches of B pairs at once, each
+        input with a leading batch axis ((nb, W, B) and (nb, B)): one
+        gather and one transpose a plane for all of them, and each
+        batch's wire a contiguous view."""
+        nb = len(qp) // B
+
         def rows(plane, idx):
-            return plane.index_select(0, idx).t().contiguous()
+            return (plane.index_select(0, idx).view(nb, B, self.W)
+                    .transpose(1, 2).contiguous())
         return (rows(self.qm_all, qp), rows(self.am_all, qp),
-                rows(self.raw_all, qp), self.lens.index_select(0, qp),
-                rows(self.raw_all, tp), self.lens.index_select(0, tp))
+                rows(self.raw_all, qp),
+                self.lens.index_select(0, qp).view(nb, B),
+                rows(self.raw_all, tp),
+                self.lens.index_select(0, tp).view(nb, B))
+
+    def _plane_buffers(self, B: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The direction and match plane buffers, for batches of up to B
+        pairs: allocated once, at the first batch of the run, and again
+        only for a larger batch."""
+        cells = self.W * self.W * B
+        if self._planes is None or self._planes[1].numel() < cells:
+            self._planes = None
+            with phase("planes"):
+                self._planes = (
+                    torch.empty(cells, dtype=torch.uint16,
+                                device=self.device),
+                    torch.empty(cells, dtype=torch.uint8, device=self.device))
+            add("allpairs.plane_bytes", 3 * cells)
+        return self._planes
 
     def run(self, qpos: torch.Tensor, tpos: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -230,20 +273,49 @@ class AllPairsDevice:
             add("allpairs.pairs", P)
             add("allpairs.batches", -(-P // B))
             add("allpairs.cells", P * W * W)
-            with phase("planes"):
-                dirs_buf = torch.empty(W * W * B, dtype=torch.uint16,
-                                       device=dev)
-                mr_buf = torch.empty(W * W * B, dtype=torch.uint8, device=dev)
-            add("allpairs.plane_bytes", dirs_buf.nbytes + mr_buf.nbytes)
+            dirs_buf, mr_buf = self._plane_buffers(B)
+            # the full batches' wire gathered CHUNK_BATCHES at a time, the
+            # tail batch's alone
+            full = P - P % B
+            group = B * self.CHUNK_BATCHES
             for lo in range(0, P, B):
                 hi = min(lo + B, P)
                 b = hi - lo
-                wire = self.batch_wire(qpos[lo:hi], tpos[lo:hi])
+                if hi > full:
+                    wire = self.batch_wire(qpos[lo:hi], tpos[lo:hi])
+                else:
+                    if lo % group == 0:
+                        end = min(lo + group, full)
+                        wires = self.batches_wire(qpos[lo:end],
+                                                  tpos[lo:end], B)
+                    wire = tuple(x[lo % group // B] for x in wires)
                 planes = (dirs_buf[:W * W * b].view(W, W, b),
                           mr_buf[:W * W * b].view(W, W, b))
                 _, over[lo:hi], dirs, mr = self.forward(*wire, out=planes)
                 stats[lo:hi] = stats_walk(dirs, mr, wire[3], wire[5])
         return over, stats
+
+    def chunks(self, P: int) -> List[Tuple[int, int]]:
+        """The (lo, hi) row ranges of a triangle of P pairs in chunks of
+        CHUNK_BATCHES batches, cut where run cuts the whole triangle."""
+        step = self.batch * self.CHUNK_BATCHES
+        bounds = [(lo, min(lo + step, P)) for lo in range(0, P, step)]
+        add("allpairs.chunks", len(bounds))
+        return bounds
+
+    def queue_chunk(self, qpos: torch.Tensor, tpos: torch.Tensor, lo: int,
+                    hi: int, accept):
+        """The pairs lo:hi of (qpos[k], tpos[k]), int64 sequence numbers
+        on the device, queued through K2m, K5 and ``accept(stats, qlens,
+        tlens)``, a (n,) bool verdict on the device (an overflowing pair
+        is never accepted there), then the verdict and the overflow flags
+        queued for the host: take_rows(handle) gives their rows."""
+        qp, tp = qpos[lo:hi], tpos[lo:hi]
+        over, stats = self.run(qp, tp)
+        with phase("accept"):
+            ok = accept(stats, self.lens.index_select(0, qp),
+                        self.lens.index_select(0, tp)) & ~over
+        return queue_rows(ok, over, lo)
 
 
 def available_bytes(device: torch.device) -> Optional[int]:
@@ -258,20 +330,31 @@ def available_bytes(device: torch.device) -> Optional[int]:
             - torch.cuda.memory_allocated(device))
 
 
-def fetch_rows(ok: torch.Tensor, over: torch.Tensor
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    """The rows of the triangle where ``ok`` holds and where ``over``
-    holds, each ascending, as host int64 arrays: one wait for the card to
-    finish the triangle and its accept, then one copy of these indices
-    alone (16 bytes a row)."""
+def queue_rows(ok: torch.Tensor, over: torch.Tensor, lo: int = 0):
+    """Queue the copy of a chunk's (n,) bool ``ok`` and ``over`` to the
+    host, two bytes a pair, and return its handle for take_rows, which
+    numbers the chunk's rows from ``lo``.  On a card the copy goes to
+    pinned memory without waiting, and an event after it marks its end."""
     with phase("stats_fetch"):
-        rows = torch.stack((ok, over))
-        if rows.is_cuda:
-            event = torch.cuda.Event()
-            event.record()
+        rows = torch.stack((ok, over), dim=1)
+        if not rows.is_cuda:
+            return rows, None, lo
+        host = torch.empty(rows.shape, dtype=torch.bool, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event, lo
+
+
+def take_rows(handle) -> Tuple[np.ndarray, np.ndarray]:
+    """The rows where queue_rows' ``ok`` and ``over`` hold, each
+    ascending, as host int64 arrays: the wait for its copy (that event
+    alone, so the work queued after it runs on), then the indices taken
+    on the host."""
+    host, event, lo = handle
+    with phase("stats_fetch"):
+        if event is not None:
             with phase("stats_wait"):
                 event.synchronize()
-        # (K, 2) [which, row], row-major: every ok row, then every over row
-        nz = torch.nonzero(rows).cpu().numpy()
-    which, idx = nz[:, 0], nz[:, 1]
-    return idx[which == 0], idx[which == 1]
+        rows = host.numpy()
+        return np.flatnonzero(rows[:, 0]) + lo, np.flatnonzero(rows[:, 1]) + lo

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import time
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -363,6 +363,19 @@ def compact_gather(forward, qmT, amT, qlens, vals, idx, mm, K: int, R: int,
     return meta, ops[:PREFETCH_OPS_CAP]
 
 
+class _Queued(NamedTuple):
+    """A device alignment queued by BatchAligner.align_pairs_begin: its DP
+    cells, its pair chunks, their outputs' host copies and the event
+    after those, the kernel libraries loaded when it began, and the
+    seconds the first half took."""
+    cells: int
+    chunks: list
+    copies: list
+    event: Optional[torch.cuda.Event]
+    libs: int
+    seconds: float
+
+
 class BatchAligner:
     """Device-batched aligner with host CIGAR/stat assembly."""
 
@@ -417,6 +430,14 @@ class BatchAligner:
 
     def align_pairs(self, qseqs: Sequence[bytes],
                     tseqs: Sequence[bytes]) -> List[AlignmentResult]:
+        return self.align_pairs_end(self.align_pairs_begin(qseqs, tseqs))
+
+    def align_pairs_begin(self, qseqs: Sequence[bytes],
+                          tseqs: Sequence[bytes]):
+        """The first half of align_pairs: the host tier's results, or the
+        device's launches queued on the current stream and not waited
+        for.  align_pairs_end(handle) gives the results, so the caller
+        may queue other work on the stream and do host work between."""
         B = len(qseqs)
         if B == 0:
             return []
@@ -439,21 +460,42 @@ class BatchAligner:
                         + 0.3 * cells / dt)
                 return native_res
         t0 = time.perf_counter()
+        libs = cuda_lib.loaded()
         # dispatch every chunk before fetching any
         cap = self.PAIR_BUCKETS[-1]
         chunks = [(qseqs[lo:lo + cap], tseqs[lo:lo + cap])
                   for lo in range(0, B, cap)]
-        pending = [self._dispatch(qc, tc) for qc, tc in chunks]
+        copies, event = self._fetch_start(
+            [self._dispatch(qc, tc) for qc, tc in chunks])
+        return _Queued(cells, chunks, copies, event, libs,
+                       time.perf_counter() - t0)
+
+    def align_pairs_end(self, handle) -> List[AlignmentResult]:
+        """The results of align_pairs_begin's handle, waiting for the
+        device's work where it queued some."""
+        if not isinstance(handle, _Queued):
+            return handle
+        t0 = time.perf_counter()
+        if handle.event is not None:
+            with phase("align_wait"):
+                handle.event.synchronize()
         out: List[AlignmentResult] = []
-        for (qc, tc), handle in zip(chunks, pending):
-            out.extend(self._collect(qc, tc, handle))
-        # overhead = wall minus the compute the kernel itself accounts for;
-        # cap the sample so one slow first call (kernel build) doesn't
-        # poison the estimate
-        dt = time.perf_counter() - t0
-        overhead = min(max(dt - cells / self.device_rate, 1e-4), 0.5)
-        BatchAligner._dev_overhead_ema = (
-            0.7 * BatchAligner._dev_overhead_ema + 0.3 * overhead)
+        for (qc, tc), copies in zip(handle.chunks, handle.copies):
+            out.extend(self.assemble_columns(
+                *(t.numpy() for t in copies), qc, tc))
+        # overhead = the two halves' wall (not the caller's work between
+        # them) minus the compute the kernel itself accounts for.  A call
+        # that built or loaded a kernel library measured that and teaches
+        # nothing: the host tier, once chosen, never measures the device
+        # again, so such a sample would keep later batches of this size
+        # off the device for the rest of the process.  The cap bounds any
+        # other slow sample.
+        if cuda_lib.loaded() == handle.libs:
+            dt = handle.seconds + time.perf_counter() - t0
+            overhead = min(max(dt - handle.cells / self.device_rate, 1e-4),
+                           0.5)
+            BatchAligner._dev_overhead_ema = (
+                0.7 * BatchAligner._dev_overhead_ema + 0.3 * overhead)
         return out
 
     def _align_pairs_native(self, qseqs: Sequence[bytes],
@@ -560,11 +602,25 @@ class BatchAligner:
             out = score, overflow, backtrack_rle(dirs, qlen_d, tlen_d)
         return out if rows is None else gather_pairs(mesh, *out)
 
-    def _collect(self, qseqs: Sequence[bytes], tseqs: Sequence[bytes],
-                 handle) -> List[AlignmentResult]:
-        with phase("align_wait"):
-            score, overflow, ops = (t.cpu().numpy() for t in handle)
-        return self.assemble_columns(score, overflow, ops, qseqs, tseqs)
+    @staticmethod
+    def _fetch_start(handles):
+        """(copies, event): each chunk's (score, overflow, ops) copied to
+        pinned host memory without waiting, queued right behind its
+        launches, and one event after the copies (None where the tensors
+        already lie on the host)."""
+        def start(t: torch.Tensor) -> torch.Tensor:
+            if not t.is_cuda:
+                return t
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            return host
+
+        copies = [tuple(start(t) for t in h) for h in handles]
+        event = None
+        if any(t.is_cuda for h in handles for t in h):
+            event = torch.cuda.Event()
+            event.record()
+        return copies, event
 
     def assemble_columns(self, score, overflow, ops: np.ndarray,
                          qseqs: Sequence[bytes], tseqs: Sequence[bytes]

@@ -29,21 +29,31 @@ ops/allpairs_dev.py), in job order:
   context    SearchContext.build
   upload     AllPairsDevice: the codes encoded and copied to the device
   triangle   the pair schedule (qpos, tpos), and its copy to the device
-  dispatch   K2m + K5 queued batch by batch (waits behind K2m); holds
-             planes, the allocation of the batches' plane buffers
-  accept     the accept cascade over the triangle queued on the device
-  stats_fetch the indices of the accepted and overflow pairs copied to
-             the host; holds stats_wait, the wait for the card to finish
-             the triangle and the accept
-  collect    the accepted pairs by query, the overflow and realign lists;
-             holds the overflow pairs' align
-  align      SearchContext.align_pairs: the realign of the overflow and
-             the accepted pairs; holds align_wait (ops/nw_batch.py
-             BatchAligner._collect), the fetch that waits on K2 + K3
-  emit       the hits rebuilt and written
+  The triangle runs in chunks of batches (AllPairsDevice.chunks), two
+  queued ahead of the one taken, so the spans from dispatch to emit
+  repeat once a chunk (stats_fetch and align twice):
+  dispatch   a chunk's K2m + K5 queued batch by batch; holds planes, the
+             allocation of the plane buffers (once a run)
+  accept     a chunk's accept cascade queued on the device
+  stats_fetch a chunk's accept verdict and overflow flags (a byte each a
+             pair) queued for copy to the host, and, two chunks later,
+             their rows taken; holds stats_wait, the wait for the card to
+             finish that chunk
+  collect    a chunk's accepted pairs by query and its realign list, and,
+             a chunk later, its overflow pairs' decision
+  align      SearchContext.align_pairs_begin: a chunk's overflow and
+             accepted pairs queued for their realign behind the next
+             chunk, and align_pairs_end, once the chunk after that is
+             queued: their results, holding align_wait (ops/nw_batch.py
+             BatchAligner.align_pairs_end), the wait for K2 + K3 and
+             their copy
+  emit       the hits rebuilt and written, of the queries whose pairs the
+             chunks realigned so far hold
   close      the output files flushed and closed
   allpairs.pairs      pairs through K2m + K5 (AllPairsDevice.run)
   allpairs.batches    the batches they are cut into
+  allpairs.chunks     the chunks of batches the triangle runs in (1: no
+                      overlap of the host's work with the card's)
   allpairs.cells      the DP cells K2m computes, W * W a pair (W the
                       run's padded width)
   allpairs.plane_bytes  bytes of the plane buffers allocated for the runs
