@@ -8,8 +8,8 @@ clustering (K4, K2, K3), allpairs_global (K2m, K5), usearch_global
 under --mismatch -200, a mismatch score outside int8 that routes the
 alignments to the wavefront forward and the flat backtrack (K1, K6, K7),
 de novo chimera detection (K4, and K2, K3 where its alignment waves
-pass the host crossover; its parity runs also drive uchime_ref's K1 and
-K6, K7 under --mismatch -200), and the session API's
+pass the aligner's NATIVE_CELLS_LIMIT; its parity runs also drive
+uchime_ref's K1 and K6, K7 under --mismatch -200), and the session API's
 SearchSession.search_batch (K1, K2, K3; its parity runs also drive
 ChimeraSession's K1); the C-ABI embedding shim, a C program's
 vstpu_search_single calls (K1, K2, K3); and the multi-process path, two
@@ -122,9 +122,9 @@ line):
    launch, then K4 against its plain version on that run's largest chunk
    and K2 and K3 on the timed run's largest alignment wave (its largest
    alignment call, sent to the card, where no wave passed the
-   crossover).  The session API: a SearchSession over the bench dataset
-   (FULL_ARGS), search_batch on its 2000 queries as one batch, once to
-   warm up, once timed with the launch counts read around it, four times
+   aligner's NATIVE_CELLS_LIMIT).  The session API: a SearchSession over
+   the bench dataset (FULL_ARGS), search_batch on its 2000 queries as one
+   batch, once to warm up, once timed with the launch counts read around it, four times
    more timed, once under torch.profiler; a result row a query, each equal in target and CIGAR
    to the usearch_global run's uc line.  The C-ABI shim ("capi"):
    vsearch_tpu_torch/capi.py builds csrc/capi.c and the demo embedder
@@ -139,16 +139,14 @@ line):
    embedder tests/capi_threads.c print the same rows; the shim in this
    process drives vstpu_* on the same workload,
    from this thread and from a new one, each launching K1, K2 and K3 and
-   no plain version.  Before each full-width run the
-   aligner's process-wide routing estimates are set back to where a
-   fresh CLI process starts, and the host/device crossover (DP cells) and
-   the walk rounds that reached the device forward are printed;
+   no plain version.  Each full-width run prints the walk rounds that
+   reached the device forward;
 5. the sharded path: tests/parallel_driver.py under torchrun, two ranks
    on the one card over gloo (nccl refuses two ranks on one card), runs
    the search cell (after a warm-up), the chimera and the clustering
-   cells as routed, and at phase 3's sizes with every alignment call on
-   the card the families' --mismatch -200 search, uchime_ref and the
-   multi-block search (two blocks a rank), each under torch.profiler.
+   cells and the multi-block search (two blocks a rank) as routed, and at
+   phase 3's sizes with every alignment call on the card the families'
+   --mismatch -200 search and uchime_ref, each under torch.profiler.
    Every output must be byte-equal to the single-process cuda run's; in
    each rank the path's kernels must launch (K1 twice a rank on the
    multi-block DB), no plain version run, the sharded index be built and
@@ -245,16 +243,11 @@ SHARDED_TIMEOUT = 600
 # runs done once untraced first, as phase 4's search cell: the second
 # run finds its index resident
 SHARDED_WARM = ("sharded_usearch_global",)
-SHARDED_SETUP = ("from vsearch_tpu_torch.ops.nw_batch import BatchAligner\n"
-                 "ROUTER = (BatchAligner._native_cells_crossover,\n"
-                 "          BatchAligner._dev_overhead_ema,\n"
-                 "          BatchAligner._native_rate_ema)\n")
-# the routing estimates a fresh process starts with
-SHARDED_FRESH = ("BatchAligner._native_cells_crossover, "
-                 "BatchAligner._dev_overhead_ema, "
-                 "BatchAligner._native_rate_ema = ROUTER\n")
-# every alignment call on the card, as phase 3's forced runs
-SHARDED_FORCED = "BatchAligner._native_cells_crossover = lambda self: 0\n"
+# every alignment call on the card, as phase 3's forced runs; it holds
+# for the rest of the ranks' process, so sharded_runs lists these runs
+# last
+SHARDED_FORCED = ("from vsearch_tpu_torch.ops.nw_batch import BatchAligner\n"
+                  "BatchAligner.NATIVE_CELLS_LIMIT = 0\n")
 
 # the kernels each main path must launch
 SEARCH_KERNELS = ("score_dense", "nw_rowscan", "nw_backtrack")
@@ -278,10 +271,6 @@ AP_CPU_SEQS = 64
 # H100 80GB HBM3 at 700 W: 12.2 s of calls, and 18.6 s in process)
 CAPI_TIMEOUT = 300
 CAPI_QUERIES = 512
-
-# BatchAligner's routing estimates (device call overhead, host cell rate)
-# as a fresh process starts with them; main() reads them before any run
-ROUTER_START = None
 
 
 def card() -> str:
@@ -369,27 +358,6 @@ def bound(nbytes: float, ops: float, ops_rate: float):
     t_bytes, t_ops = nbytes / HBM_BPS, ops / ops_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
-
-
-def crossover(argv) -> float:
-    """The aligner's host/device crossover, in DP cells, for the scheme of
-    a command line, from its current routing estimates."""
-    import torch
-    from vsearch_tpu_torch import cli
-    from vsearch_tpu_torch.ops.nw import ScoreScheme
-    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
-    scheme = ScoreScheme.from_params(cli.parse_args(argv))
-    return BatchAligner(scheme, torch.device("cuda"))._native_cells_crossover()
-
-
-def fresh_router(argv) -> float:
-    """Set the aligner's process-wide routing estimates to ROUTER_START, so
-    the next run routes as a fresh CLI process would; returns the crossover
-    that gives for argv."""
-    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
-    BatchAligner._dev_overhead_ema, BatchAligner._native_rate_ema = \
-        ROUTER_START
-    return crossover(argv)
 
 
 def require_wire(launches, codes: bool, what: str) -> None:
@@ -1502,16 +1470,14 @@ class allpairs_counts:
     """Counts, in the allpairs command's fast path, the pairs it sends
     through the device pipeline and the batches it cuts them into
     (AllPairsDevice.batch), the overflow pairs, the pairs the stats accept,
-    the pairs whose index it fetches to the host (accepted and overflow)
-    and the pairs it aligns again through SearchContext.align_pairs
-    (overflow and accepted), K2m's DP cells and the plane buffers' bytes:
-    the program's own counters
+    the pairs whose index it fetches to the host and aligns again
+    through SearchContext.align_pairs (overflow and accepted), K2m's DP
+    cells and the plane buffers' bytes: the program's own counters
     (utils/phasetimer ``tally``), turned on for the block."""
 
     NAMES = {"pairs": "allpairs.pairs", "batches": "allpairs.batches",
              "overflow": "allpairs.overflow",
              "accepted": "allpairs.accepted",
-             "fetched": "allpairs.fetched",
              "realigned": "allpairs.realigned",
              "cells": "allpairs.cells", "plane_bytes": "allpairs.plane_bytes"}
 
@@ -1533,7 +1499,6 @@ class allpairs_counts:
         return {"pairs": self.pairs, "batches": self.batches,
                 "overflow_pairs": self.overflow,
                 "accepted_by_stats": self.accepted,
-                "fetched_pairs": self.fetched,
                 "realigned_pairs": self.realigned,
                 "dp_cells": self.cells, "plane_bytes": self.plane_bytes}
 
@@ -1569,7 +1534,7 @@ class largest_wave:
     """Keeps the forward inputs of the largest alignment wave (B x M x N)
     that BatchAligner._dispatch sends to the card (args, None if none
     did), and the pairs of the largest alignment call by DP cells on
-    whichever tier the router sent it (call, None if none was made)."""
+    whichever tier it took (call, None if none was made)."""
 
     def __enter__(self):
         from vsearch_tpu_torch.ops import nw_batch
@@ -1577,7 +1542,7 @@ class largest_wave:
         self._cells = 0
         aligner = nw_batch.BatchAligner
         self._orig = dispatch = aligner._dispatch
-        self._orig_align = align = aligner.align_pairs
+        self._orig_begin = begin = aligner.align_pairs_begin
 
         def spied(this, qseqs, tseqs):
             fwd = this._forward
@@ -1598,16 +1563,16 @@ class largest_wave:
             cells = sum(len(q) * len(t) for q, t in zip(qseqs, tseqs))
             if cells > self._cells:
                 self.call, self._cells = (list(qseqs), list(tseqs)), cells
-            return align(this, qseqs, tseqs)
+            return begin(this, qseqs, tseqs)
 
         aligner._dispatch = spied
-        aligner.align_pairs = seen
+        aligner.align_pairs_begin = seen
         return self
 
     def __exit__(self, *exc):
         from vsearch_tpu_torch.ops import nw_batch
         nw_batch.BatchAligner._dispatch = self._orig
-        nw_batch.BatchAligner.align_pairs = self._orig_align
+        nw_batch.BatchAligner.align_pairs_begin = self._orig_begin
 
 
 class ranked_words:
@@ -1677,7 +1642,7 @@ def phase_parity(gpu):
         "mm200": ["--id", "0.8", "--maxaccepts", "4", "--maxrejects", "8"]
                  + MISMATCH_200}
     aligner = nw_batch.BatchAligner
-    crossover = aligner._native_cells_crossover
+    limit = aligner.NATIVE_CELLS_LIMIT
     try:
         for wname, (db, q) in workloads.items():
             forced_walk_k2 = forced_walk_k6 = 0
@@ -1685,9 +1650,8 @@ def phase_parity(gpu):
                 codes = "--mismatch" in extra
                 outs = {}
                 for run in ("cuda", "cuda_forced", "cpu"):
-                    aligner._native_cells_crossover = (
-                        (lambda self: 0) if run == "cuda_forced"
-                        else crossover)
+                    aligner.NATIVE_CELLS_LIMIT = (0 if run == "cuda_forced"
+                                                  else limit)
                     uc = d / ("%s.%s.%s.uc" % (wname, name, run))
                     b6 = d / ("%s.%s.%s.b6" % (wname, name, run))
                     cuda_lib.reset_launches()
@@ -1738,7 +1702,7 @@ def phase_parity(gpu):
                 require(forced_walk_k6 > 0,
                         "no walk round of the families reached K6")
     finally:
-        aligner._native_cells_crossover = crossover
+        aligner.NATIVE_CELLS_LIMIT = limit
 
 
 def phase_cluster_parity(gpu):
@@ -1877,9 +1841,9 @@ def phase_allpairs_parity(gpu):
                     == launches[k2m],
                     "K2m/K5 launches do not fit the path (%s)" % name)
             require_wire(launches, False, "allpairs " + name)
-            require(counts.fetched == counts.accepted + counts.overflow,
-                    "%d pairs fetched for %d accepted and %d overflowing"
-                    % (counts.fetched, counts.accepted, counts.overflow))
+            require(counts.realigned == counts.accepted + counts.overflow,
+                    "%d pairs realigned for %d accepted and %d overflowing"
+                    % (counts.realigned, counts.accepted, counts.overflow))
             if name == "match_overflow":
                 require(0 < counts.overflow < counts.pairs,
                         "%d of %d pairs overflowed under --match 220"
@@ -2002,11 +1966,11 @@ def phase_overflow_parity(gpu):
             ["--allpairs_global", str(ap), "--id", "0.01",
              "--minseqlength", "1"], ("nw_rowscan_mr", "nw_stats"))}
     aligner = nw_batch.BatchAligner
-    crossover = aligner._native_cells_crossover
+    limit = aligner.NATIVE_CELLS_LIMIT
     out = {}
     kept = {}
     try:
-        aligner._native_cells_crossover = lambda self: 0
+        aligner.NATIVE_CELLS_LIMIT = 0
         for name, (args, required) in runs.items():
             outs = {}
             for run in ("cuda", "cpu"):
@@ -2051,7 +2015,7 @@ def phase_overflow_parity(gpu):
                   "equal": True, "bytes": [len(b) for b in outs["cuda"]],
                   "card": gpu})
     finally:
-        aligner._native_cells_crossover = crossover
+        aligner.NATIVE_CELLS_LIMIT = limit
     return out, overflow_records(gpu, kept)
 
 
@@ -2064,10 +2028,10 @@ def phase_chimera_parity(gpu):
     the growing index scores rounds of 128, 512 and 32 queries, the 512
     one in several K4 chunks, resolved one round deep.  Each case runs
     on cuda with every alignment call forced onto the device aligner
-    (crossover 0) and on cpu (the plain K4/K1, every alignment on the
-    host C tier), every output byte-equal.  Each cuda run must launch K4 (de
-    novo) or K1 (uchime_ref) and K2 and K3 (K6 and K7 and no K2 or K3
-    under --mismatch -200), and no plain version."""
+    (NATIVE_CELLS_LIMIT 0) and on cpu (the plain K4/K1, every alignment on
+    the host C tier), every output byte-equal.  Each cuda run must launch
+    K4 (de novo) or K1 (uchime_ref) and K2 and K3 (K6 and K7 and no K2 or
+    K3 under --mismatch -200), and no plain version."""
     from tests.chimera_workload import write_ref_workload
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.core.chimera import ChimeraEngine
@@ -2092,7 +2056,7 @@ def phase_chimera_parity(gpu):
              "uchime3_denovo_mm200": (["--uchime3_denovo", str(fa)]
                                       + MISMATCH_200, uchime)}
     aligner = nw_batch.BatchAligner
-    crossover = aligner._native_cells_crossover
+    limit = aligner.NATIVE_CELLS_LIMIT
     saved = ChimeraEngine.DEVICE_MIN
     ChimeraEngine.DEVICE_MIN = 16
     try:
@@ -2103,9 +2067,8 @@ def phase_chimera_parity(gpu):
             required = (scoring,) + (CODES_WIRE if codes else ROW_WIRE)
             got = {}
             for run in ("cuda", "cpu"):
-                aligner._native_cells_crossover = (
-                    (lambda self: 0) if run == "cuda"
-                    else (lambda self: float("inf")))
+                aligner.NATIVE_CELLS_LIMIT = (0 if run == "cuda"
+                                              else float("inf"))
                 files = [str(d / ("%s.%s.%s" % (name, run, o)))
                          for o in outs]
                 cuda_lib.reset_launches()
@@ -2139,7 +2102,7 @@ def phase_chimera_parity(gpu):
                   "card": gpu})
     finally:
         ChimeraEngine.DEVICE_MIN = saved
-        aligner._native_cells_crossover = crossover
+        aligner.NATIVE_CELLS_LIMIT = limit
 
 
 def phase_chimera_full(gpu, chim_path):
@@ -2151,7 +2114,7 @@ def phase_chimera_full(gpu, chim_path):
     against its plain version on the largest chunk of the traced run
     (record "score_ranked_chimera"), K2 and K3 on the largest alignment
     wave the timed run sent to the card, or its largest alignment call
-    sent there afterwards where the router kept every call on the host
+    sent there afterwards where every call stayed on the host
     (records "nw_rowscan_chimera" and "nw_backtrack_chimera").  Returns
     (launches, records)."""
     import torch
@@ -2165,7 +2128,6 @@ def phase_chimera_full(gpu, chim_path):
     outs = ("chimeras", "nonchimeras", "borderline")
 
     def run(tag):
-        fresh_router(argv)
         t0 = time.perf_counter()
         rc = cli.main(argv + [x for o in outs for x in
                               ("--" + o, str(WORK / ("%s.%s" % (tag, o))))],
@@ -2174,7 +2136,6 @@ def phase_chimera_full(gpu, chim_path):
         require(rc == 0, "uchime3_denovo failed")
         return time.perf_counter() - t0
 
-    start_crossover = fresh_router(argv)
     phasetimer.ENABLED = True
     phasetimer.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -2183,7 +2144,6 @@ def phase_chimera_full(gpu, chim_path):
         elapsed = run("chimera")
     launches = dict(cuda_lib.LAUNCHES)
     host_phase_s = dict(phasetimer.acc)
-    end_crossover = crossover(argv)
     require(not any(cuda_lib.PLAIN_CALLS.values()),
             "a plain version ran on the chimera path")
     require(launches["score_ranked"] > 0,
@@ -2202,8 +2162,6 @@ def phase_chimera_full(gpu, chim_path):
           "launches": launches,
           "nw_rowscan_walk_rounds": walk.count,
           "nw_wavefront_walk_rounds": walk.count_k6,
-          "crossover_cells_start": start_crossover,
-          "crossover_cells_end": end_crossover,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "host_phase_s": host_phase_s, "card": gpu})
     phasetimer.reset()
@@ -2213,7 +2171,8 @@ def phase_chimera_full(gpu, chim_path):
                        match=(k4_name, "nw_rowscan", "nw_backtrack"))
     phasetimer.ENABLED = False
     # the device tier's rounds follow from the accepted references alone,
-    # not from the router: the traced run makes the timed run's K4 launches
+    # not from the aligner's route: the traced run makes the timed run's
+    # K4 launches
     require(scanned.launches == launches["score_ranked"],
             "the traced run made %d K4 launches, the timed run %d"
             % (scanned.launches, launches["score_ranked"]))
@@ -2235,7 +2194,7 @@ def phase_chimera_full(gpu, chim_path):
     del Kbits, bits, rank
     torch.cuda.empty_cache()
     # K2 and K3 on the timed run's largest wave on the card; where the
-    # router sent every call to the host, on its largest alignment call,
+    # route kept every call on the host, on its largest alignment call,
     # sent to the card here
     scheme = ScoreScheme.from_params(cli.parse_args(argv))
     aligner = BatchAligner(scheme, torch.device("cuda"))
@@ -2327,7 +2286,7 @@ def phase_pipeline_parity(gpu):
     d.mkdir(parents=True, exist_ok=True)
     steps = pipeline_steps(*write_amplicon_workload(d))
     aligner = nw_batch.BatchAligner
-    crossover = aligner._native_cells_crossover
+    limit = aligner.NATIVE_CELLS_LIMIT
     here = os.getcwd()
     seconds = {}
     try:
@@ -2335,11 +2294,10 @@ def phase_pipeline_parity(gpu):
             wd = d / run
             wd.mkdir(exist_ok=True)
             os.chdir(wd)
-            aligner._native_cells_crossover = (
-                crossover if run == "cuda" else (lambda self: float("inf")))
+            aligner.NATIVE_CELLS_LIMIT = (limit if run == "cuda"
+                                          else float("inf"))
             seconds[run] = {}
             for name, argv, _ in steps:
-                fresh_router(argv)
                 cuda_lib.reset_launches()
                 t0 = time.perf_counter()
                 rc = cli.main(argv + ["--threads", "1", "--quiet"],
@@ -2356,7 +2314,7 @@ def phase_pipeline_parity(gpu):
                               "card": gpu})
     finally:
         os.chdir(here)
-        aligner._native_cells_crossover = crossover
+        aligner.NATIVE_CELLS_LIMIT = limit
     for name, _, outs in steps:
         for o in outs:
             require((d / "cuda" / o).read_bytes()
@@ -2449,9 +2407,9 @@ def sharded_runs(db_path, q_path, amp_path, chim_path, mb_db, mb_q, mb_uc,
                  mb_b6):
     """The sharded phase's runs, each against the single-process cuda run
     of the same input: the full-width search, chimera and clustering cells
-    of phase 4 as routed, and at phase 3's sizes with every alignment call
-    on the card, the families' --mismatch -200 search, uchime_ref and the
-    multi-block search."""
+    of phase 4 and the multi-block search as routed, then, at phase 3's
+    sizes with every alignment call on the card (SHARDED_FORCED), the
+    families' --mismatch -200 search and uchime_ref."""
     d = WORK / "sharded"
     par, chp = WORK / "parity", WORK / "chparity"
     chim_outs = ("chimeras", "nonchimeras", "borderline")
@@ -2462,21 +2420,26 @@ def sharded_runs(db_path, q_path, amp_path, chim_path, mb_db, mb_q, mb_uc,
         "sharded_usearch_global": (
             ["--usearch_global", str(q_path), "--db", str(db_path), "--uc",
              str(d / "full.uc")] + FULL_ARGS,
-            {d / "full.uc": WORK / "full.uc"}, SHARDED_FRESH,
+            {d / "full.uc": WORK / "full.uc"}, "",
             SEARCH_KERNELS, "ShardedKmerIndex"),
         "sharded_uchime3_denovo": (
             ["--uchime3_denovo", str(chim_path)] + CHIM_ARGS
             + [x for o in chim_outs for x in ("--" + o, str(d / ("chimera."
                                                                  + o)))],
             {d / ("chimera." + o): WORK / ("chimera." + o)
-             for o in chim_outs}, SHARDED_FRESH, ("score_ranked",),
+             for o in chim_outs}, "", ("score_ranked",),
             "ShardedGrowingKmerIndex"),
         "sharded_cluster_size": (
             ["--cluster_size", str(amp_path), "--uc", str(d / "cluster.uc"),
              "--centroids", str(d / "cluster.fa")] + CLUSTER_ARGS,
             {d / "cluster.uc": WORK / "cluster.uc",
-             d / "cluster.fa": WORK / "cluster.fa"}, SHARDED_FRESH,
+             d / "cluster.fa": WORK / "cluster.fa"}, "",
             CLUSTER_KERNELS, "ShardedGrowingKmerIndex"),
+        "sharded_multiblock": (
+            ["--usearch_global", str(mb_q), "--db", str(mb_db), "--uc",
+             str(d / "mb.uc"), "--blast6out", str(d / "mb.b6")] + MB_ARGS,
+            {d / "mb.uc": mb_uc, d / "mb.b6": mb_b6}, "",
+            SEARCH_KERNELS, "ShardedKmerIndex"),
         "sharded_usearch_global_mismatch_200": (
             ["--usearch_global", str(fq), "--db", str(fdb), "--uc",
              str(d / "mm200.uc"), "--blast6out", str(d / "mm200.b6"),
@@ -2492,11 +2455,6 @@ def sharded_runs(db_path, q_path, amp_path, chim_path, mb_db, mb_q, mb_uc,
             {d / ("ref." + o): chp / ("uchime_ref.cuda." + o)
              for o in uchime}, SHARDED_FORCED,
             ("score_dense",) + ROW_WIRE, "ShardedKmerIndex"),
-        "sharded_multiblock": (
-            ["--usearch_global", str(mb_q), "--db", str(mb_db), "--uc",
-             str(d / "mb.uc"), "--blast6out", str(d / "mb.b6")] + MB_ARGS,
-            {d / "mb.uc": mb_uc, d / "mb.b6": mb_b6}, SHARDED_FRESH,
-            SEARCH_KERNELS, "ShardedKmerIndex"),
     }
 
 
@@ -2520,7 +2478,7 @@ def phase_sharded(gpu, runs, ranks=SHARDED_RANKS, shared_card=True):
     placement = ({"backend": "gloo", "device": "cuda:0"} if shared_card
                  else {})
     spec.write_text(json.dumps(dict(placement, **{
-        "setup": SHARDED_SETUP, "report": str(d / "report"),
+        "report": str(d / "report"),
         "runs": [run for name, (argv, _, setup, _, _) in runs.items()
                  for run in ([{"name": name + "_warm", "setup": setup,
                                "argv": argv}] if name in SHARDED_WARM
@@ -2599,7 +2557,6 @@ def phase_api_full(gpu, db_path, q_path):
             build = time.perf_counter() - t0
 
             def run():
-                fresh_router(argv)
                 t0 = time.perf_counter()
                 rows = ss.search_batch(queries)
                 torch.cuda.synchronize()
@@ -2848,11 +2805,7 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
     codes = bool(extra)
     kernels = SEARCH_200_KERNELS if codes else SEARCH_KERNELS
 
-    argv = ["--usearch_global", str(q_path), "--db", str(db_path), "--uc",
-            os.devnull] + FULL_ARGS + list(extra)
-
     def run(qfile, uc):
-        fresh_router(argv)
         t0 = time.perf_counter()
         rc = cli.main(["--usearch_global", str(qfile), "--db", str(db_path),
                        "--uc", str(uc)] + FULL_ARGS + list(extra),
@@ -2861,7 +2814,6 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
         require(rc == 0, "usearch_global failed")
         return time.perf_counter() - t0
 
-    start_crossover = fresh_router(argv)
     # the warm-up fills the caching allocators (device and pinned host)
     run(q_path, WORK / ("%s_warm.uc" % tag))
     torch.cuda.reset_peak_memory_stats()
@@ -2875,7 +2827,6 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
         require(launches[name] > 0,
                 "kernel %s was not launched on the search path" % name)
     require_wire(launches, codes, tag)
-    end_crossover = crossover(argv)
     lines = (WORK / ("%s.uc" % tag)).read_bytes().splitlines()
     require(len(lines) == N_QUERIES, "uc has %d lines" % len(lines))
     hits = sum(1 for ln in lines if ln.startswith(b"H\t"))
@@ -2884,8 +2835,6 @@ def phase_full(gpu, db_path, q_path, extra=(), tag="full"):
           "seq_len": SEQ_LEN, "seconds": elapsed,
           "queries_per_s": N_QUERIES / elapsed, "hits": hits,
           "launches": launches, "chunks": -(-N_QUERIES // 512),
-          "crossover_cells_start": start_crossover,
-          "crossover_cells_end": end_crossover,
           "nw_rowscan_walk_rounds": walk.count,
           "nw_wavefront_walk_rounds": walk.count_k6,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -2914,10 +2863,8 @@ def phase_cluster_full(gpu, amp_path):
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.ops import cuda_lib
     n_seqs = 4 * AMP_FAMILIES
-    argv = ["--cluster_size", str(amp_path)] + CLUSTER_ARGS
 
     def run(tag):
-        fresh_router(argv)
         t0 = time.perf_counter()
         rc = cli.main(["--cluster_size", str(amp_path), "--uc",
                        str(WORK / ("%s.uc" % tag)), "--centroids",
@@ -2927,7 +2874,6 @@ def phase_cluster_full(gpu, amp_path):
         require(rc == 0, "cluster_size failed")
         return time.perf_counter() - t0
 
-    start_crossover = fresh_router(argv)
     # host time by pipeline phase (utils/phasetimer: a clock read per span)
     from vsearch_tpu_torch.utils import phasetimer
     phasetimer.ENABLED = True
@@ -2938,7 +2884,6 @@ def phase_cluster_full(gpu, amp_path):
         elapsed = run("cluster")
     launches = dict(cuda_lib.LAUNCHES)
     host_phase_s = dict(phasetimer.acc)
-    end_crossover = crossover(argv)
     require(not any(cuda_lib.PLAIN_CALLS.values()),
             "a plain version ran on the cluster path")
     for name in CLUSTER_KERNELS:
@@ -2960,8 +2905,6 @@ def phase_cluster_full(gpu, amp_path):
           "device_rounds": launches["score_ranked"],
           "nw_rowscan_walk_rounds": walk.count,
           "nw_rowscan_prefetch": launches["nw_rowscan"] - walk.count,
-          "crossover_cells_start": start_crossover,
-          "crossover_cells_end": end_crossover,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "host_phase_s": host_phase_s, "card": gpu})
     phasetimer.reset()
@@ -3000,10 +2943,8 @@ def phase_allpairs_full(gpu, ap_path):
     from vsearch_tpu_torch.ops import cuda_lib, nw_rowscan
     from vsearch_tpu_torch.utils import phasetimer
     n_pairs = AP_SEQS * (AP_SEQS - 1) // 2
-    argv = ["--allpairs_global", str(ap_path)] + AP_ARGS
 
     def run(tag, path=ap_path, device="cuda"):
-        fresh_router(argv)
         t0 = time.perf_counter()
         rc = cli.main(["--allpairs_global", str(path), "--blast6out",
                        str(WORK / ("%s.b6" % tag))] + AP_ARGS,
@@ -3013,7 +2954,6 @@ def phase_allpairs_full(gpu, ap_path):
         require(rc == 0, "allpairs_global failed")
         return time.perf_counter() - t0
 
-    start_crossover = fresh_router(argv)
     forward = nw_rowscan._forward
     walls = {}
     for tag, body in (("allpairs", "nw_rowscan_mr16"),
@@ -3067,8 +3007,6 @@ def phase_allpairs_full(gpu, ap_path):
               "pairs_per_s": n_pairs / elapsed, "blast6_lines": len(lines),
               **counts.record(), "launches": launches,
               "nw_rowscan_walk_rounds": walk.count,
-              "crossover_cells_start": start_crossover,
-              "crossover_cells_end": crossover(argv),
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "card": gpu})
         if tag == "allpairs":
@@ -3113,10 +3051,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vsearch_tpu_torch.ops import cuda_lib  # noqa: F401 (package check)
-    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
-    global ROUTER_START
-    ROUTER_START = (BatchAligner._dev_overhead_ema,
-                    BatchAligner._native_rate_ema)
     t_start = time.perf_counter()
     gpu = card()
     WORK.mkdir(parents=True, exist_ok=True)

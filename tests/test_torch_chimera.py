@@ -2,7 +2,7 @@
 
 The port runs in a subprocess on its CPU device (every kernel wrapper takes
 its plain version) with ChimeraEngine.DEVICE_MIN lowered and the aligner's
-host crossover fixed by its driver, so that after one host round of 128
+NATIVE_CELLS_LIMIT set in that process, so that after one host round of 128
 queries its growing k-mer index (K4) scores the de novo rounds, several
 512-part chunks a round, and the walk waves and full-query batches go
 through the plain K2 + K3 (K6 + K7 under --mismatch -200); uchime_ref
@@ -22,19 +22,19 @@ from .conftest import run_ours
 from .test_torch_search import run_port
 
 # device tier from the 16th accepted reference on.  Alignment calls of
-# more than the crossover's DP cells go to the plain kernels, the smaller
+# more than NATIVE_CELLS_LIMIT DP cells go to the plain kernels, the smaller
 # ones to the host C tier.  The cases on the 800-sequence workload send
 # calls above 70 000 cells (about four full queries at 128 x 128: the walk
 # waves and the full-query batches) to the plain kernels and the
 # same-round repair's single pairs to the host: the plain K2 costs 70-135
-# ms a call here whatever its pair count, K6 230-430 ms, and a crossover
+# ms a call here whatever its pair count, K6 230-430 ms, and a limit
 # of 0 sends thousands of single pairs to them.  One case on a workload
 # of 32 sequences sends every call, the repair's single pairs among them,
-# to the plain kernels (crossover 0)
+# to the plain kernels (limit 0)
 SETUP = ("from vsearch_tpu_torch.core.chimera import ChimeraEngine\n"
          "from vsearch_tpu_torch.ops.nw_batch import BatchAligner\n"
          "ChimeraEngine.DEVICE_MIN = 16\n"
-         "BatchAligner._native_cells_crossover = lambda self: %d")
+         "BatchAligner.NATIVE_CELLS_LIMIT = %d")
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 
@@ -83,8 +83,8 @@ CASES = {
                              "score_ranked"),
 }
 
-# the crossover in DP cells where it is not 70 000
-CROSSOVER = {"uchime_denovo_crossover0": 0}
+# the limit in DP cells where it is not 70 000
+CELLS_LIMIT = {"uchime_denovo_crossover0": 0}
 
 ROW_WIRE = ("nw_rowscan", "nw_backtrack")
 CODES_WIRE = ("nw_wavefront", "nw_backtrack_flat")
@@ -100,7 +100,7 @@ def test_chimera_matches_jax(workload, tmp_path, case):
 
     run_ours(args + out_args("jax"), tmp_path)
     rep = run_port(args + out_args("port") + ["--threads", "1", "--quiet"],
-                   tmp_path, setup=SETUP % CROSSOVER.get(case, 70000))
+                   tmp_path, setup=SETUP % CELLS_LIMIT.get(case, 70000))
     assert rep["rc"] == 0
     for o in outs:
         jax_out = (tmp_path / ("jax." + o)).read_bytes()

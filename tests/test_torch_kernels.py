@@ -655,8 +655,7 @@ def test_batch_aligner_cuda_matches_cpu(cuda_device, monkeypatch, mismatch):
     """The aligner's device path gives the same results on the card as on
     the CPU (the plain versions): K2 and K3 on the row wire, K6 and K7
     under a mismatch score outside int8."""
-    monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
-                        lambda self: 0)
+    monkeypatch.setattr(nw_batch.BatchAligner, "NATIVE_CELLS_LIMIT", 0)
     p = Parameters()
     p.apply_defaults_fixups()
     p.opt_mismatch = mismatch
@@ -896,9 +895,6 @@ def test_allpairs_chunks_cuda_match_cpu(cuda_device, tmp_path, monkeypatch):
     AllPairsDevice = allpairs_dev.AllPairsDevice
     monkeypatch.setattr(AllPairsDevice, "PAIR_BATCH", 128)
     monkeypatch.setattr(AllPairsDevice, "CHUNK_BATCHES", 2)
-    # the realign's routing as a fresh process starts it
-    monkeypatch.setattr(nw_batch.BatchAligner, "_dev_overhead_ema", 8e-3)
-    monkeypatch.setattr(nw_batch.BatchAligner, "_native_rate_ema", 1.0e9)
     monkeypatch.setattr(phasetimer, "ENABLED", True)
     # 56 related sequences (7 clades of 8, every pair within 90 %) and 8
     # random ones, in a random order: about three pairs in four accepted

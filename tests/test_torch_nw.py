@@ -245,8 +245,6 @@ def test_align_pairs_matches_oracle(monkeypatch, one_thread, case):
     ba = nw_batch.BatchAligner(scheme, torch.device("cpu"))
     # every batch through the device path, none to the host C tier
     monkeypatch.setattr(nw_batch.BatchAligner, "NATIVE_CELLS_LIMIT", 0)
-    monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
-                        lambda self: 0)
     pairs = _pairs_like_test_nw(case)
     cuda_lib.reset_launches()
     got = ba.align_pairs([q for q, _ in pairs], [t for _, t in pairs])
@@ -277,26 +275,28 @@ def test_align_pairs_matches_oracle(monkeypatch, one_thread, case):
 
 
 
-@pytest.mark.parametrize("loads", [0, 1], ids=["warm", "library_loaded"])
-def test_router_learns_nothing_from_a_library_load(monkeypatch, one_thread,
-                                                   loads):
-    """The device path's overhead sample moves the router's estimate,
-    unless the call built or loaded a kernel library: then it measured
-    that, and the estimate stays."""
+@pytest.mark.parametrize("below", [0, 1], ids=["at_limit", "above_limit"])
+def test_route_follows_the_batch_cells(monkeypatch, one_thread, below):
+    """A batch of exactly NATIVE_CELLS_LIMIT DP cells runs on the host C
+    tier; under a limit one cell lower it runs on the device (its plain
+    versions here).  It takes that route on every call, and each result
+    equals the scalar oracle's."""
     p = Parameters()
     p.apply_defaults_fixups()
-    scheme = ScoreScheme(*_key(jax_nw.ScoreScheme.from_params(p)))
-    ba = nw_batch.BatchAligner(scheme, torch.device("cpu"))
-    monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
-                        lambda self: 0)
-    monkeypatch.setattr(nw_batch.BatchAligner, "_dev_overhead_ema", 8e-3)
-    # the libraries loaded so far: ``loads`` more at each look
-    looks = []
-    monkeypatch.setattr(cuda_lib, "loaded",
-                        lambda: looks.append(1) or len(looks) * loads)
+    jax_scheme = jax_nw.ScoreScheme.from_params(p)
+    ba = nw_batch.BatchAligner(ScoreScheme(*_key(jax_scheme)),
+                               torch.device("cpu"))
     pairs = _pairs_like_test_nw("seed1")
-    cuda_lib.reset_launches()
-    ba.align_pairs([q for q, _ in pairs], [t for _, t in pairs])
-    assert cuda_lib.PLAIN_CALLS["nw_rowscan"] == 1
-    moved = nw_batch.BatchAligner._dev_overhead_ema != 8e-3
-    assert moved == (not loads)
+    cells = sum(len(q) * len(t) for q, t in pairs)
+    monkeypatch.setattr(nw_batch.BatchAligner, "NATIVE_CELLS_LIMIT",
+                        cells - below)
+    want = [jax_nw.align_pair_host(jax_scheme, q, t) for q, t in pairs]
+    for _ in range(2):
+        cuda_lib.reset_launches()
+        got = ba.align_pairs([q for q, _ in pairs], [t for _, t in pairs])
+        assert cuda_lib.PLAIN_CALLS["nw_rowscan"] == below
+        assert cuda_lib.PLAIN_CALLS["nw_backtrack"] == below
+        for (q, t), h, r in zip(pairs, want, got):
+            assert (h.score, h.cigar, h.aligned, h.matches, h.mismatches,
+                    h.gaps) == (r.score, r.cigar, r.aligned, r.matches,
+                                r.mismatches, r.gaps), (q, t)

@@ -8,9 +8,9 @@ package's row-scan forward (ops/nw_pallas2.py overflow_possible, which
 runs only on a TPU) takes max(match, 0), so under a mismatch reward it
 drops the tracking there.  Its CPU engines, the host C tier and the XLA
 scan, always track.  Here the port runs in a subprocess on its CPU device
-with every alignment call sent to its device aligner (host crossover 0,
-plain K2 + K3, K2m's 32-bit body for allpairs), the JAX package in
-process; uc, blast6 and userout must be byte-equal.  The port's aligner
+with every alignment call sent to its device aligner (its
+NATIVE_CELLS_LIMIT 0, plain K2 + K3, K2m's 32-bit body for allpairs), the
+JAX package in process; uc, blast6 and userout must be byte-equal.  The port's aligner
 must have flagged overflowing pairs (SHRT_MAX sentinels, realigned by the
 linear-memory aligner).  Workload: tests/overflow_workload.py.
 """
@@ -31,7 +31,7 @@ import atexit, json, torch
 from tests.overflow_workload import count_overflow
 from vsearch_tpu_torch.ops.nw_batch import BatchAligner
 torch.set_num_threads(1)
-BatchAligner._native_cells_crossover = lambda self: 0
+BatchAligner.NATIVE_CELLS_LIMIT = 0
 SEEN, _ = count_overflow()
 atexit.register(lambda: open("overflow.json", "w").write(json.dumps(SEEN)))
 """
@@ -124,8 +124,7 @@ def test_aligner_overflow_matches_jax(workload, monkeypatch):
     ts = [recs[b] for _, b in pairs]
     port = nw_batch.BatchAligner(scheme(ScoreScheme, Parameters),
                                  torch.device("cpu"))
-    monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
-                        lambda self: 0)
+    monkeypatch.setattr(nw_batch.BatchAligner, "NATIVE_CELLS_LIMIT", 0)
     got = port.align_pairs(qs, ts)
     want = nw_jax.BatchAligner(
         scheme(JaxScheme, JaxParameters)).align_pairs(qs, ts)

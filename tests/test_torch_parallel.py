@@ -8,13 +8,14 @@ must be byte-equal to the single-process run's and to vsearch_tpu's: the
 static index sharded over the ranks (an 800-sequence DB leaves the upper
 shards empty), the growing index sharded for clustering and de novo
 chimera detection, the pair-sharded aligner on both wires, a session, and
-the dry run's sharded_count_topk and sharded_nw_scores.  A run where rank
-1 measures another host rate than rank 0 must still finish: the route of
-an alignment batch is rank 0's.  Each rank reports the sharded classes it
-built, its collectives, and that it loaded neither jax nor vsearch_tpu.
-A 2-rank launch checks that the group's teardown at exit joins gloo's
-worker threads before Python finalizes.  These are the counterparts of
-tests/test_multichip.py and tests/test_distributed.py.
+the dry run's sharded_count_topk and sharded_nw_scores.  At the default
+NATIVE_CELLS_LIMIT the ranks route every alignment batch alike with no
+collective of their own: the route reads the batch alone.  Each rank
+reports the sharded classes it built, its collectives, and that it
+loaded neither jax nor vsearch_tpu.  A 2-rank launch checks that the
+group's teardown at exit joins gloo's worker threads before Python
+finalizes.  These are the counterparts of tests/test_multichip.py and
+tests/test_distributed.py.
 """
 
 import json
@@ -37,39 +38,25 @@ from .test_torch_cluster import families  # noqa: F401 (fixture)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DRIVER = REPO / "tests" / "parallel_driver.py"
 
-CROSSOVER = ("from vsearch_tpu_torch.ops.nw_batch import BatchAligner\n"
-             "BatchAligner._native_cells_crossover = %s\n")
 SETUP = ("from vsearch_tpu_torch.core.chimera import ChimeraEngine\n"
          "from vsearch_tpu_torch.core.cluster import ClusterEngine\n"
          "from vsearch_tpu_torch.ops.nw_batch import BatchAligner\n"
          "ChimeraEngine.DEVICE_MIN = 16\n"
          "ClusterEngine.DEVICE_MIN = 16\n"
-         "ROUTER = (BatchAligner._native_cells_crossover,\n"
-         "          BatchAligner._dev_overhead_ema,\n"
-         "          BatchAligner._native_rate_ema)\n")
+         "LIMIT = BatchAligner.NATIVE_CELLS_LIMIT\n")
+CELLS_LIMIT = "BatchAligner.NATIVE_CELLS_LIMIT = %s\n"
 # every walk round on the (plain) device aligner
-ALL_DEVICE = CROSSOVER % "lambda self: 0"
+ALL_DEVICE = CELLS_LIMIT % 0
 # alignment calls above 70 000 DP cells on the plain kernels, the rest on
 # the host (tests/test_torch_chimera.py)
-CHIMERA = CROSSOVER % "lambda self: 70000"
-# the routing estimates a fresh process starts with
-FRESH = ("BatchAligner._native_cells_crossover, "
-         "BatchAligner._dev_overhead_ema, "
-         "BatchAligner._native_rate_ema = ROUTER\n")
-# rank 0 sends every batch to the device, rank 1 would keep every batch
-# on its host: without one route for both the run would hang
-DISAGREE = FRESH + ("BatchAligner.NATIVE_CELLS_LIMIT = 0\n"
-                    "if rank == 0:\n"
-                    "    BatchAligner._dev_overhead_ema = 1e-12\n"
-                    "else:\n"
-                    "    BatchAligner._native_rate_ema = 1e15\n")
+CHIMERA = CELLS_LIMIT % 70000
+# the default limit
+DEFAULT = CELLS_LIMIT % "LIMIT"
 
 # the family set searched against itself: each query's family gives its
 # walk rounds
 SEARCH = ["--id", "0.8", "--strand", "both", "--maxaccepts", "4",
           "--maxrejects", "16"]
-# the search's top-k chunks: 800 queries on both strands, 512 a chunk
-SEARCH_CHUNKS = 4
 # name -> (argv with {inputs}, outputs, setup, world sizes)
 CASES = {
     "search": (["--usearch_global", "{fam}", "--db", "{fam}"] + SEARCH,
@@ -78,7 +65,7 @@ CASES = {
                      + ["--mismatch", "-200"], ("uc", "blast6out"),
                      ALL_DEVICE, (2, 4)),
     "cluster_size": (["--cluster_size", "{fam}", "--id", "0.97"],
-                     ("uc", "centroids"), FRESH, (2,)),
+                     ("uc", "centroids"), DEFAULT, (2,)),
     "uchime3_denovo": (["--uchime3_denovo", "{chim}"],
                        ("uchimeout", "chimeras", "nonchimeras"), CHIMERA,
                        (2,)),
@@ -144,7 +131,7 @@ def _spec(files, world):
                      "code": SESSION % (str(files["db"]), str(files["q"]))})
     runs.append({"name": "sharded_fns", "code": SHARDED_FNS})
     if world == 2:
-        runs.append({"name": "router", "setup": DISAGREE,
+        runs.append({"name": "router", "setup": DEFAULT,
                      "argv": _argv("search", files, "router")})
     path = files["dir"] / ("%s.json" % tag)
     path.write_text(json.dumps({"setup": SETUP, "runs": runs,
@@ -281,21 +268,20 @@ def test_session_matches(runs):
     _check_ranks(reports[2], "session", "ShardedKmerIndex")
 
 
-def test_router_disagreement_finishes(runs):
-    """Rank 1 would keep every batch on its host, rank 0 sends them to the
-    device: both take rank 0's route, and the run finishes with the
-    single-process bytes."""
+def test_ranks_route_alike_without_a_collective(runs):
+    """The search at the default NATIVE_CELLS_LIMIT on two ranks: each
+    rank routes every alignment batch from the batch alone, so both make
+    the same plain kernel calls and no collective but the all-gathers of
+    the sharded work, and the run finishes with the single-process
+    bytes."""
     files, reports, _ = runs
     d = files["dir"]
     for o in CASES["search"][1]:
         assert (d / ("router.search.%s" % o)).read_bytes() \
             == (d / ("w1.search.%s" % o)).read_bytes(), o
     ranks = [_run(rep, "router") for rep in reports[2]]
-    assert all(run["collectives"]["broadcast"] > 0 for run in ranks)
-    # rank 0's route: walk rounds on the device, on both ranks (rank 1's
-    # own would have aligned only the top-k chunks' prefetch there)
     assert ranks[0]["plain_calls"] == ranks[1]["plain_calls"]
-    assert ranks[1]["plain_calls"]["nw_rowscan"] > SEARCH_CHUNKS
+    assert all(set(run["collectives"]) == {"all_gather"} for run in ranks)
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -250,8 +250,7 @@ def test_aligner_codes_wire_matches_oracle(monkeypatch):
     assert not ba.row_wire
     assert nw_batch.BatchAligner(ScoreScheme(*_schemes()["default"]),
                                  torch.device("cpu")).row_wire
-    monkeypatch.setattr(nw_batch.BatchAligner, "_native_cells_crossover",
-                        lambda self: 0)
+    monkeypatch.setattr(nw_batch.BatchAligner, "NATIVE_CELLS_LIMIT", 0)
     rng = np.random.default_rng(5)
     acgt = np.frombuffer(b"ACGTN", dtype=np.uint8)
     qs, ts = [], []

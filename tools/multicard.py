@@ -42,9 +42,6 @@ def main() -> int:
         return 1
     from vsearch_tpu_torch import cli
     from vsearch_tpu_torch.ops import cuda_lib
-    from vsearch_tpu_torch.ops.nw_batch import BatchAligner
-    cs.ROUTER_START = (BatchAligner._dev_overhead_ema,
-                       BatchAligner._native_rate_ema)
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -65,7 +62,6 @@ def main() -> int:
         single = [str(outs.get(pathlib.Path(a), a)) for a in argv]
 
         def run(single=single):
-            cs.fresh_router(single)
             t = time.perf_counter()
             rc = cli.main(single, device="cuda:0")
             torch.cuda.synchronize()

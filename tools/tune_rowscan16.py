@@ -76,9 +76,6 @@ def main() -> int:
         return 1
     gpu = chip_smoke.card()
     record = {"card": gpu}
-    # the aligner's routing estimates as a fresh process starts with them
-    chip_smoke.ROUTER_START = (nw_batch.BatchAligner._dev_overhead_ema,
-                               nw_batch.BatchAligner._native_rate_ema)
     built = cuda_lib.build(["nw_rowscan_mr16"], force=True)
     ptxas, fn = {}, None
     for line in built["nw_rowscan"]["ptxas"].splitlines():
@@ -129,11 +126,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     if not opts.skip_cell:
-        argv = ["--allpairs_global", str(ap_path)] + chip_smoke.AP_ARGS
         cell, first = {}, None
         for n, B in enumerate(BATCHES[:1] + BATCHES + BATCHES[::-1]):
             allpairs_dev.AllPairsDevice.PAIR_BATCH = B
-            chip_smoke.fresh_router(argv)
             cuda_lib.reset_launches()
             out = chip_smoke.WORK / ("tune_ap_%d.b6" % B)
             t0 = time.perf_counter()

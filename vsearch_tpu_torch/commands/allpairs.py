@@ -399,7 +399,6 @@ def _allpairs_fast(params, eff, db, ctx, align_progress, make_qi,
                             tpos[over_rows].tolist()))
             add("allpairs.accepted", len(pending))
             add("allpairs.overflow", len(slow))
-            add("allpairs.fetched", len(pending) + len(slow))
             add("allpairs.realigned", len(slow) + len(pending))
         realign = (ctx.align_pairs_begin([(seqs[q], t)
                                           for q, t in slow + pending])

@@ -25,7 +25,8 @@ device through the growing k-mer index (ops/score_grow.py, kernel K4);
 uchime_ref scores on SearchContext's static index (kernel K1).  The walk
 waves and the full-query batches go through SearchContext.align_pairs
 (kernels K2 and K3, or K6 and K7 under a mismatch score outside int8,
-above the host crossover).  A failure on the device tier raises.
+above the aligner's NATIVE_CELLS_LIMIT).  A failure on the device tier
+raises.
 """
 
 from __future__ import annotations

@@ -175,15 +175,7 @@ class SearchContext:
                     ) -> List[AlignmentResult]:
         """Align (qseq, target_seqno) pairs with search16 semantics +
         linear-memory fallback for sentinel scores."""
-        with phase("align"):
-            results, pending = self._host_aligned(pairs)
-            if pending:
-                batch = self.aligner.align_pairs(
-                    [pairs[i][0] for i in pending],
-                    [self.db.getsequence(pairs[i][1]) for i in pending])
-                for i, res in zip(pending, batch):
-                    results[i] = res
-            return self._linmem_fallback(pairs, results)
+        return self.align_pairs_end(self.align_pairs_begin(pairs))
 
     def align_pairs_begin(self, pairs: Sequence[Tuple[bytes, int]]):
         """align_pairs in two halves: this one aligns on the host the

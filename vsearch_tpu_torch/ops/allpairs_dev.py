@@ -35,30 +35,15 @@ import torch
 
 from . import cuda_lib
 from .nw import DIR_EXTLEFT, DIR_EXTUP, DIR_LEFT, DIR_UP
-from .nw_batch import OP_D, OP_I, OP_M, OP_NONE, encode_padded
+from .bundle import fetch_start, fetch_wait
+from .nw_batch import (OP_D, OP_I, OP_M, OP_NONE, encode_padded,
+                       encode_rows, scheme_key)
 from .nw_rowscan import build_forward
 from ..utils.phasetimer import add, phase
 
 # stats columns (the JAX package's order)
 STATS_COLUMNS = ("aligned", "matches", "indels", "gap_opens", "first_op",
                  "first_len", "last_op", "last_len")
-
-
-def encode_rowT_all(codes: np.ndarray, mismatch: int, n_mismatch: bool):
-    """Per-sequence (n, W) qm (int8) and am (int16) code planes for the
-    row-scan wire: the untransposed form of nw_batch.encode_rowT, whose
-    rows are gathered and transposed on the device per pair batch.  am is
-    int16, as K2's wire is, so any mismatch score the CLI accepts fits."""
-    amb = np.ones(16, dtype=bool)
-    amb[[1, 2, 4, 8]] = False
-    qm_lut = np.arange(16, dtype=np.int8)
-    qm_lut[amb] = -1
-    am_lut = np.full(16, mismatch, dtype=np.int16)
-    am_lut[amb] = 0
-    if n_mismatch:
-        qm_lut[15] = -2
-        am_lut[15] = mismatch
-    return qm_lut[codes], am_lut[codes]
 
 
 _argtypes_set = False
@@ -189,24 +174,21 @@ class AllPairsDevice:
     def __init__(self, scheme, seqs: Sequence[bytes],
                  device: torch.device) -> None:
         self.device = torch.device(device)
-        key = (scheme.match, scheme.mismatch, scheme.go_q_left,
-               scheme.go_t_left, scheme.go_q_int, scheme.go_t_int,
-               scheme.go_q_right, scheme.go_t_right, scheme.ge_q_left,
-               scheme.ge_t_left, scheme.ge_q_int, scheme.ge_t_int,
-               scheme.ge_q_right, scheme.ge_t_right, scheme.n_mismatch)
         n = len(seqs)
         maxlen = max((len(s) for s in seqs), default=1)
         # the exact padded width: one forward geometry per run, so padding
         # to a shape bucket would only add cells
         self.W = W = max((max(maxlen, 1) + 7) // 8 * 8, 16)
         codes = encode_padded(seqs, n, W)
-        qm, am = encode_rowT_all(codes, scheme.mismatch, scheme.n_mismatch)
+        # the untransposed row wire, gathered and transposed on the device
+        # per pair batch (batches_wire)
+        qm, am = encode_rows(codes, scheme.mismatch, scheme.n_mismatch)
         lens = np.fromiter((max(len(s), 1) for s in seqs), dtype=np.int32,
                            count=n)
         self.raw_all, self.qm_all, self.am_all, self.lens = (
             torch.from_numpy(a).to(self.device) for a in (codes, qm, am, lens))
         self.batch = self.batch_size(W, available_bytes(self.device))
-        self.forward = build_forward(key, with_matches=True)
+        self.forward = build_forward(scheme_key(scheme), with_matches=True)
         self._planes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @classmethod
@@ -332,17 +314,10 @@ def available_bytes(device: torch.device) -> Optional[int]:
 
 def queue_rows(ok: torch.Tensor, over: torch.Tensor, lo: int = 0):
     """Queue the copy of a chunk's (n,) bool ``ok`` and ``over`` to the
-    host, two bytes a pair, and return its handle for take_rows, which
-    numbers the chunk's rows from ``lo``.  On a card the copy goes to
-    pinned memory without waiting, and an event after it marks its end."""
+    host, two bytes a pair (bundle.fetch_start), and return its handle
+    for take_rows, which numbers the chunk's rows from ``lo``."""
     with phase("stats_fetch"):
-        rows = torch.stack((ok, over), dim=1)
-        if not rows.is_cuda:
-            return rows, None, lo
-        host = torch.empty(rows.shape, dtype=torch.bool, pin_memory=True)
-        host.copy_(rows, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        host, event = fetch_start(torch.stack((ok, over), dim=1))
         return host, event, lo
 
 
@@ -353,8 +328,5 @@ def take_rows(handle) -> Tuple[np.ndarray, np.ndarray]:
     on the host."""
     host, event, lo = handle
     with phase("stats_fetch"):
-        if event is not None:
-            with phase("stats_wait"):
-                event.synchronize()
-        rows = host.numpy()
+        rows = fetch_wait((host, event), "stats_wait")
         return np.flatnonzero(rows[:, 0]) + lo, np.flatnonzero(rows[:, 1]) + lo

@@ -107,12 +107,6 @@ def build(kernels: Iterable[str] = KERNELS, force: bool = False
     return out
 
 
-def loaded() -> int:
-    """How many kernel libraries the process has loaded (each built first
-    if it was missing or stale)."""
-    return len(_libs)
-
-
 def load(kernel: str) -> ctypes.CDLL:
     """The loaded library holding a kernel, built first if missing or
     stale."""

@@ -20,13 +20,13 @@ the candidate pairs that pass minmatches into dense lanes on the device,
 without a host sync; on the codes wire it aligns each query's top-1
 candidate (dispatch_indexed), as the JAX package does.
 
-Small batches run on the host C tier instead (native
-vstpu_nw_align_batch): the crossover adapts above NATIVE_CELLS_LIMIT from
-the measured device-call overhead and host cell rate, kept in-process.
+A batch of at most NATIVE_CELLS_LIMIT DP cells runs on the host C tier
+instead (native vstpu_nw_align_batch).  The rule reads the batch alone,
+so a batch takes the same route on every call and on every rank.
 
-Under a mesh of several ranks (parallel/mesh.py) a batch's pairs are
-sharded: each rank aligns its slice of the rows and the results are
-all-gathered, and every rank takes rank 0's host/device route.
+Under a mesh of several ranks (parallel/mesh.py) a device batch's pairs
+are sharded: each rank aligns its slice of the rows and the results are
+all-gathered.
 
 Semantics are bit-identical to the reference engine and to ops/nw.py's
 scalar oracle: cells are int32, overflow flags replicate the reference's
@@ -36,18 +36,17 @@ scalar oracle: cells are int32, overflow flags replicate the reference's
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import cuda_lib, nw_rowscan, nw_wavefront
+from .bundle import fetch_start, fetch_wait
 from .nw import SHRT_MAX, AlignmentResult, ScoreScheme
 from .score_dense import POS_SENTINEL
 from ..parallel.mesh import active_mesh
 from ..utils.maps import CHRMAP_4BIT
-from ..utils.phasetimer import phase
 
 # op codes emitted by the backtrack
 OP_NONE, OP_M, OP_D, OP_I = 0, 1, 2, 3
@@ -74,18 +73,26 @@ def encode_padded(seqs: Sequence[bytes], rows: int, width: int) -> np.ndarray:
     return out
 
 
-def encode_rowT(qseqs: Sequence[bytes], rows: int, width: int,
-                mismatch: int, n_mismatch: bool):
-    """Host-side wire prep for the row-scan kernel: returns (qmT, amT) --
-    (width, rows), transposed, with the ambiguity/N remap folded in by LUT
-    so the device does no per-batch preprocessing.
+def scheme_key(scheme: ScoreScheme) -> tuple:
+    """The scheme's 15 scoring fields in the order build_forward of
+    nw_rowscan and nw_wavefront takes them (nw_jax's key)."""
+    return (scheme.match, scheme.mismatch, scheme.go_q_left,
+            scheme.go_t_left, scheme.go_q_int, scheme.go_t_int,
+            scheme.go_q_right, scheme.go_t_right, scheme.ge_q_left,
+            scheme.ge_t_left, scheme.ge_q_int, scheme.ge_t_int,
+            scheme.ge_q_right, scheme.ge_t_right, scheme.n_mismatch)
+
+
+def encode_rows(codes: np.ndarray, mismatch: int, n_mismatch: bool):
+    """The row-scan wire's (qm, am) of 4-bit codes, shaped as the codes,
+    with the ambiguity/N remap folded in by LUT so the device does no
+    per-batch preprocessing.
 
     qm (int8): the 4-bit code, or -1 for ambiguous codes (never equal to
     any target code => substitution falls through to am), or -2 for N
     under n_mismatch.  am (int16, wider than the TPU's int8 so that any
     mismatch score fits): the mismatch score, or 0 for ambiguous codes
     (reference score-matrix semantics, align_simd.cpp:1319-1342)."""
-    codes = encode_padded(qseqs, rows, width)
     amb = np.ones(16, dtype=bool)
     amb[[1, 2, 4, 8]] = False
     qm_lut = np.arange(16, dtype=np.int8)
@@ -95,8 +102,17 @@ def encode_rowT(qseqs: Sequence[bytes], rows: int, width: int,
     if n_mismatch:
         qm_lut[15] = -2
         am_lut[15] = mismatch
-    return (np.ascontiguousarray(qm_lut[codes].T),
-            np.ascontiguousarray(am_lut[codes].T))
+    return qm_lut[codes], am_lut[codes]
+
+
+def encode_rowT(qseqs: Sequence[bytes], rows: int, width: int,
+                mismatch: int, n_mismatch: bool):
+    """Host-side wire prep for the row-scan kernel: (qmT, amT), the
+    encode_rows of the zero-padded (rows, width) codes, transposed to
+    (width, rows)."""
+    qm, am = encode_rows(encode_padded(qseqs, rows, width), mismatch,
+                         n_mismatch)
+    return np.ascontiguousarray(qm.T), np.ascontiguousarray(am.T)
 
 
 def _bucket(x: int, base: int = 64) -> int:
@@ -364,16 +380,10 @@ def compact_gather(forward, qmT, amT, qlens, vals, idx, mm, K: int, R: int,
 
 
 class _Queued(NamedTuple):
-    """A device alignment queued by BatchAligner.align_pairs_begin: its DP
-    cells, its pair chunks, their outputs' host copies and the event
-    after those, the kernel libraries loaded when it began, and the
-    seconds the first half took."""
-    cells: int
+    """A device alignment queued by BatchAligner.align_pairs_begin: its
+    pair chunks and the fetch of their outputs (bundle.fetch_start)."""
     chunks: list
-    copies: list
-    event: Optional[torch.cuda.Event]
-    libs: int
-    seconds: float
+    fetch: tuple
 
 
 class BatchAligner:
@@ -383,50 +393,22 @@ class BatchAligner:
     # caps one dispatch at 1024 pairs)
     PAIR_BUCKETS = (128, 256, 512, 1024)
 
-    # floor below which batches always run on the host C tier; the live
-    # crossover adapts above it from measured device-call overhead and
-    # host cell rate (see align_pairs)
+    # a batch of at most this many DP cells runs on the host C tier, a
+    # larger one on the device
     NATIVE_CELLS_LIMIT = 8_000_000
-    # cells/s of each wire's device forward, as measured on an H100 80GB
-    # HBM3 at a 700 W power limit, B=512, M=N=640 (chip_smoke.py phase 2,
-    # tools/tune_wavefront.py): K2 2.1e8 cells in 2.094 ms; K6 2.1e8 cells
-    # in 0.803 ms
-    ROW_WIRE_RATE = 1.00e11
-    CODES_WIRE_RATE = 2.61e11
-
-    # adaptive host/device routing state, process-wide: EMA of the device
-    # call's fixed cost and of the host C tier's measured cell rate
-    _dev_overhead_ema = 8e-3     # seconds; pre-learning default
-    _native_rate_ema = 1.0e9     # cells/s; conservative start
 
     def __init__(self, scheme: ScoreScheme, device: torch.device) -> None:
         self.scheme = scheme
         self.device = torch.device(device)
-        self._key = (scheme.match, scheme.mismatch, scheme.go_q_left,
-                     scheme.go_t_left, scheme.go_q_int, scheme.go_t_int,
-                     scheme.go_q_right, scheme.go_t_right, scheme.ge_q_left,
-                     scheme.ge_t_left, scheme.ge_q_int, scheme.ge_t_int,
-                     scheme.ge_q_right, scheme.ge_t_right, scheme.n_mismatch)
+        self._key = scheme_key(scheme)
         # the wire, once per scheme (nw_jax.py:393-394): the JAX package
         # takes the row scan only when the mismatch score fits its int8
         # wire, and the port keeps that ladder (its own K2 takes int16)
         self.row_wire = -128 <= scheme.mismatch <= 127
         if self.row_wire:
             self._forward = nw_rowscan.build_forward(self._key)
-            self.device_rate = self.ROW_WIRE_RATE
         else:
             self._forward = nw_wavefront.build_forward(self._key)
-            self.device_rate = self.CODES_WIRE_RATE
-
-    def _native_cells_crossover(self) -> float:
-        """Batch size (DP cells) above which the device dispatch beats the
-        host C tier: solve cells/host_rate > overhead + cells/device_rate
-        with the measured EMAs.  A host at least as fast per cell as the
-        device keeps every batch."""
-        inv = 1.0 / self._native_rate_ema - 1.0 / self.device_rate
-        if inv <= 0:
-            return float("inf")
-        return max(self.NATIVE_CELLS_LIMIT, self._dev_overhead_ema / inv)
 
     def align_pairs(self, qseqs: Sequence[bytes],
                     tseqs: Sequence[bytes]) -> List[AlignmentResult]:
@@ -437,65 +419,33 @@ class BatchAligner:
         """The first half of align_pairs: the host tier's results, or the
         device's launches queued on the current stream and not waited
         for.  align_pairs_end(handle) gives the results, so the caller
-        may queue other work on the stream and do host work between."""
+        may queue other work on the stream and do host work between.
+        Every rank of a mesh counts the cells of the whole batch, so all
+        take its route."""
         B = len(qseqs)
         if B == 0:
             return []
         cells = sum(len(q) * len(t) for q, t in zip(qseqs, tseqs))
-        host = cells <= self._native_cells_crossover()
-        mesh = active_mesh()
-        if mesh is not None:
-            # the EMAs are each process's own measurements: the ranks take
-            # rank 0's route, else one would wait in a collective of the
-            # device path that another never joins
-            host = mesh.decide(host)
-        if host:
-            t0 = time.perf_counter()
+        if cells <= self.NATIVE_CELLS_LIMIT:
             native_res = self._align_pairs_native(qseqs, tseqs)
             if native_res is not None:
-                dt = time.perf_counter() - t0
-                if cells >= 1_000_000 and dt > 0:
-                    BatchAligner._native_rate_ema = (
-                        0.7 * BatchAligner._native_rate_ema
-                        + 0.3 * cells / dt)
                 return native_res
-        t0 = time.perf_counter()
-        libs = cuda_lib.loaded()
         # dispatch every chunk before fetching any
         cap = self.PAIR_BUCKETS[-1]
         chunks = [(qseqs[lo:lo + cap], tseqs[lo:lo + cap])
                   for lo in range(0, B, cap)]
-        copies, event = self._fetch_start(
-            [self._dispatch(qc, tc) for qc, tc in chunks])
-        return _Queued(cells, chunks, copies, event, libs,
-                       time.perf_counter() - t0)
+        return _Queued(chunks, fetch_start(
+            [self._dispatch(qc, tc) for qc, tc in chunks]))
 
     def align_pairs_end(self, handle) -> List[AlignmentResult]:
         """The results of align_pairs_begin's handle, waiting for the
         device's work where it queued some."""
         if not isinstance(handle, _Queued):
             return handle
-        t0 = time.perf_counter()
-        if handle.event is not None:
-            with phase("align_wait"):
-                handle.event.synchronize()
         out: List[AlignmentResult] = []
-        for (qc, tc), copies in zip(handle.chunks, handle.copies):
-            out.extend(self.assemble_columns(
-                *(t.numpy() for t in copies), qc, tc))
-        # overhead = the two halves' wall (not the caller's work between
-        # them) minus the compute the kernel itself accounts for.  A call
-        # that built or loaded a kernel library measured that and teaches
-        # nothing: the host tier, once chosen, never measures the device
-        # again, so such a sample would keep later batches of this size
-        # off the device for the rest of the process.  The cap bounds any
-        # other slow sample.
-        if cuda_lib.loaded() == handle.libs:
-            dt = handle.seconds + time.perf_counter() - t0
-            overhead = min(max(dt - handle.cells / self.device_rate, 1e-4),
-                           0.5)
-            BatchAligner._dev_overhead_ema = (
-                0.7 * BatchAligner._dev_overhead_ema + 0.3 * overhead)
+        for (qc, tc), fetched in zip(handle.chunks,
+                                     fetch_wait(handle.fetch, "align_wait")):
+            out.extend(self.assemble_columns(*fetched, qc, tc))
         return out
 
     def _align_pairs_native(self, qseqs: Sequence[bytes],
@@ -601,26 +551,6 @@ class BatchAligner:
                 self._upload(t4T), tlen_d)
             out = score, overflow, backtrack_rle(dirs, qlen_d, tlen_d)
         return out if rows is None else gather_pairs(mesh, *out)
-
-    @staticmethod
-    def _fetch_start(handles):
-        """(copies, event): each chunk's (score, overflow, ops) copied to
-        pinned host memory without waiting, queued right behind its
-        launches, and one event after the copies (None where the tensors
-        already lie on the host)."""
-        def start(t: torch.Tensor) -> torch.Tensor:
-            if not t.is_cuda:
-                return t
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            return host
-
-        copies = [tuple(start(t) for t in h) for h in handles]
-        event = None
-        if any(t.is_cuda for h in handles for t in h):
-            event = torch.cuda.Event()
-            event.record()
-        return copies, event
 
     def assemble_columns(self, score, overflow, ops: np.ndarray,
                          qseqs: Sequence[bytes], tseqs: Sequence[bytes]

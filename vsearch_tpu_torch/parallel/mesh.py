@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-COLLECTIVES: Dict[str, int] = {"all_gather": 0, "broadcast": 0}
+COLLECTIVES: Dict[str, int] = {"all_gather": 0}
 
 
 def reset_collectives() -> None:
@@ -44,10 +44,6 @@ class Mesh:
         self.size = dist.get_world_size()
         self.rank = dist.get_rank()
         self.device = device
-        # the device of a collective's buffers: nccl takes CUDA tensors
-        # only, gloo takes both (CUDA tensors through its own host copy)
-        self.comm_device = (device if dist.get_backend() == "nccl"
-                            else torch.device("cpu"))
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` (equal shapes), concatenated along ``dim`` in
@@ -63,18 +59,6 @@ class Mesh:
         out = torch.cat(parts).view(x.dtype).reshape(
             (x.shape[0] * self.size,) + tuple(x.shape[1:]))
         return out.movedim(0, dim)
-
-    def decide(self, flag: bool) -> bool:
-        """Rank 0's value of ``flag`` on every rank: a decision read off a
-        clock or another per-process measurement, which ranks could make
-        differently, must agree, or one rank waits in a collective that
-        another never joins."""
-        import torch.distributed as dist
-        COLLECTIVES["broadcast"] += 1
-        t = torch.tensor([int(flag)], dtype=torch.int32,
-                         device=self.comm_device)
-        dist.broadcast(t, 0)
-        return bool(t.item())
 
     def rows(self, n: int) -> Optional[Tuple[int, int]]:
         """This rank's slice [lo, hi) of a batch of n rows when the ranks

@@ -59,9 +59,8 @@ ops/allpairs_dev.py), in job order:
   allpairs.plane_bytes  bytes of the plane buffers allocated for the runs
   allpairs.overflow   pairs whose scores overflowed
   allpairs.accepted   pairs the stats accept
-  allpairs.fetched    pairs whose index crosses to the host (accepted +
-                      overflow)
-  allpairs.realigned  pairs aligned again (overflow + accepted)
+  allpairs.realigned  pairs whose index crosses to the host, to be
+                      aligned again (overflow + accepted)
   allpairs.rows       hits written, once each whatever the output files
 
 Metrics of the benchmark that read them (benchmark/metrics/):
